@@ -1,73 +1,45 @@
-"""exahype_tpu — a TPU-native stencil-kernel compiler for hyperbolic PDE solvers.
+"""The package's former name, kept so that existing imports go on working.
 
-A ground-up rebuild of the capabilities of the ExaHyPE xDSL stencil-DSL
-prototype (reference: ``xdslproject/ExaHyPE``): a SymPy-based kernel
-specification API (``KernelBuilder``) describing patch-based finite-volume /
-ADER-DG updates, a verifiable kernel IR with lowering passes and an opt-style
-CLI, and code-generation backends.  Where the reference emits nested-loop C++
-(for ExaHyPE2/Peano) and textual MLIR (via xDSL), this framework lowers the
-same kernel specs to jittable JAX/XLA/Pallas programs: patches batch along a
-sharded leading axis on a GSPMD device mesh, halos live as array padding and
-are exchanged with ``ppermute`` collectives over ICI, and hot patch-update
-kernels are fused Pallas kernels resident in VMEM.
-
-Public API (mirrors the reference package exports, ``exahype/__init__.py:1-2``
-and ``exahype/printers/__init__.py:1``):
-
-- :class:`~exahype_tpu.frontend.kernel_builder.KernelBuilder`
-- :class:`~exahype_tpu.frontend.typed_function.TypedFunction`
-- :class:`~exahype_tpu.backends.jax_backend.JAXPrinter` (the TPU analogue of
-  the reference's ``MLIRPrinter`` — emits a jitted function, not text)
-- :class:`~exahype_tpu.backends.cpp_backend.CPPPrinter` (native backend for
-  differential correctness testing, analogue of the reference CPPPrinter)
+Importing it, or any submodule under it, returns the very module objects of
+:mod:`exahype_jax` (one copy of every class, so ``isinstance`` and the
+solvers' identity checks hold across both names).  New code imports
+:mod:`exahype_jax`.
 """
 
-from exahype_tpu.frontend.kernel_builder import KernelBuilder, viable
-from exahype_tpu.frontend.typed_function import TypedFunction
-from exahype_tpu.utils.config import KernelConfig
-from exahype_tpu.utils.errors import SemanticError
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-__version__ = "0.1.0"
-
-__all__ = [
-    "KernelBuilder",
-    "TypedFunction",
-    "KernelConfig",
-    "SemanticError",
-    "viable",
-    "__version__",
-]
+_NEW = "exahype_jax"
+_OLD = __name__
 
 
-def __getattr__(name):
-    # Lazy backend imports so that `import exahype_tpu` stays cheap and does
-    # not pull in jax for pure front-end use (e.g. the C++ printer on a host).
-    if name == "JAXPrinter":
-        from exahype_tpu.backends.jax_backend import JAXPrinter
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<old>.x.y`` to the already-imported ``exahype_jax.x.y``."""
 
-        return JAXPrinter
-    if name == "CPPPrinter":
-        from exahype_tpu.backends.cpp_backend import CPPPrinter
+    def find_spec(self, fullname, path, target=None):
+        if fullname.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
 
-        return CPPPrinter
-    if name == "PallasPrinter":
-        from exahype_tpu.backends.pallas_backend import PallasPrinter
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        spec.loader_state = module.__spec__
+        return module
 
-        return PallasPrinter
-    if name == "MLIRPrinter":
-        from exahype_tpu.backends.mlir_backend import MLIRPrinter
+    def exec_module(self, module):
+        # The import system stamped the alias spec on the shared module;
+        # give it back its own.
+        module.__spec__ = module.__spec__.loader_state
 
-        return MLIRPrinter
-    if name == "ADERDGSolver":
-        from exahype_tpu.models.aderdg import ADERDGSolver
 
-        return ADERDGSolver
-    if name == "PallasADERDG":
-        from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-        return PallasADERDG
-    if name == "LimitedADERDG":
-        from exahype_tpu.models.limiter import LimitedADERDG
-
-        return LimitedADERDG
-    raise AttributeError(f"module 'exahype_tpu' has no attribute {name!r}")
+warnings.warn(
+    f"{_OLD} is now {_NEW}; import {_NEW} instead",
+    DeprecationWarning,
+    stacklevel=2,
+)
+if not any(isinstance(f, _Alias) for f in sys.meta_path):
+    sys.meta_path.insert(0, _Alias())
+sys.modules[_OLD] = importlib.import_module(_NEW)

@@ -1,27 +1,30 @@
 """North-star demo: 3-D compressible Euler, ADER-DG order 3.
 
 Runs the BASELINE.md target configuration end to end: a smooth density wave
-on a periodic cell grid, integrated with the space-time
-predictor/corrector, reporting conservation drift and throughput.
-On CPU this runs a tiny grid; on the TPU chip pick a lane-tiled grid
-(last axis a multiple of 128) for full performance.
+on a periodic cell grid, integrated with the space-time predictor/corrector
+through the fused GPU cell stage, reporting conservation drift and
+throughput.  ``--cpu`` runs a tiny grid on the CPU with the kernel in
+interpret mode.
+
+Run: python examples/aderdg_euler3d.py [--cpu]
 """
 
 import sys
 import time
 
-import jax
+from exahype_jax.utils.gpu import select_platform
 
-if "--cpu" in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
+CPU = select_platform("--cpu" in sys.argv)
 
-import jax.numpy as jnp
-import numpy as np
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
+from exahype_jax.models.aderdg import ADERDGSolver, euler_physics  # noqa: E402
+from exahype_jax.models.aderdg_triton import TritonADERDG  # noqa: E402
 
 dim, order = 3, 3
-grid_shape = (4, 4, 4) if jax.default_backend() == "cpu" else (8, 8, 128)
+grid_shape = (4, 4, 4) if CPU else (64, 64, 64)
 
 flux, eig = euler_physics(dim=dim, n_real=5)
 solver = ADERDGSolver(
@@ -43,22 +46,14 @@ Q = jnp.asarray(
         [rho, rho, 0.5 * rho, 0.25 * rho, 5.0 + 0.5 * rho * 1.3125],
         axis=solver.var_axis,
     ),
-    dtype=jnp.float32 if jax.default_backend() != "cpu" else None,
+    dtype=None if CPU else jnp.float32,
 )
 
 dt = float(solver.cfl_dt(Q))
 n_steps = 20
 mass0 = np.asarray(solver.total_mass(Q))
 
-# The fused-Pallas fast path (VMEM predictor + in-kernel interior Riemann);
-# interpret mode on CPU, the real kernel on the chip.
-from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-fused = PallasADERDG(
-    solver,
-    interpret=(jax.default_backend() == "cpu"),
-    tile0=1 if jax.default_backend() == "cpu" else 2,
-)
+fused = TritonADERDG(solver, interpret=CPU)
 run = jax.jit(lambda q: fused.run(q, n_steps, dt))
 out = run(Q)
 out.block_until_ready()
@@ -70,4 +65,5 @@ elapsed = time.perf_counter() - t0
 drift = np.abs(np.asarray(solver.total_mass(out)) - mass0).max()
 print(f"grid {grid_shape}, order {order}, dt={dt:.2e}")
 print(f"conservation drift: {drift:.3e}")
-print(f"throughput: {solver.dofs() * n_steps / elapsed / 1e9:.3f} GDOF/s")
+print(f"throughput: {solver.dofs() * n_steps / elapsed / 1e9:.3f} GDOF/s "
+      f"on {jax.devices()[0].device_kind}")

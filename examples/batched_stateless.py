@@ -12,14 +12,14 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
-from exahype_tpu.backends.cpp_backend import CPPPrinter
-from exahype_tpu.backends.jax_backend import JAXPrinter
-from exahype_tpu.ir import print_function, spec_to_loops
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.backends.cpp_backend import CPPPrinter
+from exahype_jax.backends.jax_backend import JAXPrinter
+from exahype_jax.ir import print_function, spec_to_loops
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 kernel = build_rusanov_kernel(dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5)
 
-# Native backend -> test.cpp (compile with exahype_tpu/native/euler.cpp).
+# Native backend -> test.cpp (compile with exahype_jax/native/euler.cpp).
 CPPPrinter(kernel, header="euler.h").file("test.cpp")
 
 # Loop IR -> test.lir (the inspectable lowered form).

@@ -3,7 +3,7 @@
 The two-level hierarchy (:class:`NestedRefinement`) is static per
 compilation — every shape is fixed so the coupled step jits.  Adaptivity
 happens BETWEEN chunks, the standard recipe for AMR under XLA; the loop
-lives in :class:`exahype_tpu.parallel.refine.DynamicRefinement`: integrate
+lives in :class:`exahype_jax.parallel.refine.DynamicRefinement`: integrate
 a chunk, score patches with a host-side criterion, move the refined region
 to track the feature, rebuild the hierarchy (prolonging the new region from
 the running coarse solution), and continue.  Compiled steps are cached per
@@ -23,12 +23,12 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import hyperbolic
-from exahype_tpu.models.fv import build_fv_rusanov_kernel
-from exahype_tpu.parallel import GridSolver, PatchGrid
-from exahype_tpu.parallel.refine import DynamicRefinement
-from exahype_tpu.utils.config import KernelConfig
-from exahype_tpu.utils.output import assemble_global, disassemble_global
+from exahype_jax.models import hyperbolic
+from exahype_jax.models.fv import build_fv_rusanov_kernel
+from exahype_jax.parallel import GridSolver, PatchGrid
+from exahype_jax.parallel.refine import DynamicRefinement
+from exahype_jax.utils.config import KernelConfig
+from exahype_jax.utils.output import assemble_global, disassemble_global
 
 GX = GY = 6
 PATCH = 4

@@ -33,9 +33,9 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import euler
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.models.curvilinear import (
+from exahype_jax.models import euler
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.models.curvilinear import (
     curvilinear_dissipation_mask,
     curvilinear_physics,
     densitize,

@@ -10,7 +10,7 @@ back and lowered: try
 
 import copy
 
-from exahype_tpu.ir import (
+from exahype_jax.ir import (
     DType,
     FluxBuilder,
     IRBuilder,

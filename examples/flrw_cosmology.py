@@ -25,8 +25,8 @@ if "--cpu" in sys.argv or __name__ != "__main__":
 
 import numpy as np
 
-from exahype_tpu.models.z4 import N_VARS as N_Z4
-from exahype_tpu.models.z4_matter import (
+from exahype_jax.models.z4 import N_VARS as N_Z4
+from exahype_jax.models.z4_matter import (
     flrw_reference,
     flrw_state,
     make_z4_matter_solver,

@@ -25,9 +25,9 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import grmhd_cfc as m
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.models.limiter import LimitedADERDG
+from exahype_jax.models import grmhd_cfc as m
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.models.limiter import LimitedADERDG
 
 GAMMA = 4.0 / 3.0
 on_cpu = jax.default_backend() == "cpu"

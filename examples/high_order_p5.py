@@ -1,20 +1,10 @@
-"""High-order ADER-DG: order-5 Euler with the STREAMED fused predictor.
+"""High-order ADER-DG: order-5 Euler through the fused GPU cell stage.
 
-Demonstrates the round-3 high-order kernel modes of
-``models/aderdg_pallas.py``:
-
-- ``picard_loop`` (auto-on for n_nodes >= 5): Picard iterations run as a
-  real ``lax.fori_loop`` so Mosaic's register pressure is bounded by one
-  iteration's body — the fully-unrolled p5 predictor spills >100 MB of
-  vector registers and cannot compile at all;
-- ``slice_loop`` (auto-on for n_nodes >= 7): the per-iteration work also
-  streams over time slices by static rotate-and-append.
-
-On CPU the kernel runs in interpret mode on a tiny grid and checks
-(order+1)-order accuracy against the exact advected density wave; on the
-chip it uses a lane-tiled grid and reports throughput (measured: p5
-fused 44.9 ms/step = 0.099 GDOF/s — 2.0x the pure-XLA path; see
-docs/PERFORMANCE.md).
+The kernel pads the six p5 nodes per axis to eight (edge-replicated node
+values, zero operator columns) and runs the Picard iterations as a loop
+inside the kernel.  ``--cpu`` runs it in interpret mode on a tiny grid and
+checks (order+1)-order accuracy against the exact advected density wave;
+on the GPU it runs a 16³ grid and reports throughput.
 
 Reference parity: the reference family exists to run high-order ADER-DG
 (SURVEY.md §0); its xDSL prototype stops at kernel specs, this runs the
@@ -26,32 +16,28 @@ Run: python examples/high_order_p5.py [--cpu]
 import sys
 import time
 
-import jax
+from exahype_jax.utils.gpu import select_platform
 
-if "--cpu" in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
+CPU = select_platform("--cpu" in sys.argv)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from exahype_jax.models.aderdg import ADERDGSolver, euler_physics  # noqa: E402
+from exahype_jax.models.aderdg_triton import TritonADERDG  # noqa: E402
+
+if CPU:
     jax.config.update("jax_enable_x64", True)
-
-import jax.numpy as jnp
-import numpy as np
-
-from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-on_cpu = jax.default_backend() == "cpu"
 dim, order = 3, 5
-grid_shape = (4, 4, 4) if on_cpu else (32, 4, 128)
+grid_shape = (4, 4, 4) if CPU else (16, 16, 16)
 
 flux, eig = euler_physics(dim=dim, n_real=5)
 solver = ADERDGSolver(
     dim=dim, order=order, n_vars=5, grid_shape=grid_shape,
     flux_fn=flux, max_eigenvalue_fn=eig, dx=1.0 / grid_shape[0],
 )
-fused = PallasADERDG(
-    solver, tile0=1, interpret=on_cpu,
-    dtype=np.float64 if on_cpu else np.float32,
-)
-assert fused.picard_loop is None  # auto mode resolves inside build()
+fused = TritonADERDG(solver, interpret=CPU)
 
 # Exact smooth solution: density wave advecting at constant velocity.
 vel = (1.0, 0.5, 0.25)
@@ -71,10 +57,11 @@ def wave_state(t):
     )
     E = p0 / (gamma - 1.0) + 0.5 * rho * sum(v * v for v in vel)
     comps = [rho] + [rho * v for v in vel] + [E]
-    return jnp.asarray(np.stack(comps, axis=solver.var_axis))
+    return jnp.asarray(np.stack(comps, axis=solver.var_axis),
+                       None if CPU else jnp.float32)
 
 
-dt = 2e-3 if on_cpu else 2e-5
+dt = 2e-3 if CPU else 2e-4
 n_steps = 10
 Q0 = wave_state(0.0)
 
@@ -83,18 +70,17 @@ Q = Q0
 step = jax.jit(lambda q: fused.step(q, dt))
 for _ in range(n_steps):
     Q = step(Q)
-err = np.asarray(
-    jnp.abs(Q - wave_state(n_steps * dt)).max()
-)  # host fetch = hard sync
+err = np.asarray(jnp.abs(Q - wave_state(n_steps * dt)).max())
 elapsed = time.perf_counter() - t0
 
 mass0 = float(np.asarray(solver.total_mass(Q0))[0])
 mass1 = float(np.asarray(solver.total_mass(Q))[0])
-print(f"p5 streamed predictor: max error vs exact wave {err:.3e}")
+print(f"p5 fused cell stage: max error vs exact wave {err:.3e}")
 print(f"mass drift {abs(mass1 - mass0):.3e}")
 print(f"{n_steps} steps in {elapsed:.2f}s "
-      f"({solver.dofs() * n_steps / elapsed / 1e9:.3f} GDOF/s incl. compile)")
-tol = 2e-5 if on_cpu else 5e-3
+      f"({solver.dofs() * n_steps / elapsed / 1e9:.3f} GDOF/s incl. compile, "
+      f"{jax.devices()[0].device_kind})")
+tol = 2e-5 if CPU else 5e-3
 assert err < tol, err
-assert abs(mass1 - mass0) < (1e-12 if on_cpu else 1e-5)
+assert abs(mass1 - mass0) < (1e-12 if CPU else 1e-5)
 print("high-order p5: accurate + conservative")

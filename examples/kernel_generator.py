@@ -9,8 +9,8 @@ instance, and the emitted file carries the Peano include block.
 
 from sympy.codegen.ast import integer, none, real
 
-from exahype_tpu import KernelBuilder
-from exahype_tpu.backends.cpp_backend import CPPPrinter
+from exahype_jax import KernelBuilder
+from exahype_jax.backends.cpp_backend import CPPPrinter
 
 kernel = KernelBuilder(dim=2, patch_size=4, halo_size=1, n_real=4, n_aux=0)
 

@@ -32,11 +32,11 @@ import tempfile
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import euler
-from exahype_tpu.models.aderdg import ADERDGSolver
-from exahype_tpu.models.aderdg_pool import DynamicADERDGPool
-from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
-from exahype_tpu.parallel.driver import AdaptiveTimeLoopDriver, DriverConfig
+from exahype_jax.models import euler
+from exahype_jax.models.aderdg import ADERDGSolver
+from exahype_jax.models.aderdg_pool import DynamicADERDGPool
+from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
+from exahype_jax.parallel.driver import AdaptiveTimeLoopDriver, DriverConfig
 
 logging.basicConfig(level=logging.INFO, format="%(message)s")
 
@@ -45,11 +45,11 @@ GAMMA = 1.4
 
 
 def flux2(Q, axis, var_axis):
-    return euler.flux_tpu(Q, axis, dim=2, n_real=4, var_axis=var_axis)
+    return euler.flux_soa(Q, axis, dim=2, n_real=4, var_axis=var_axis)
 
 
 def eig2(Q, axis, var_axis):
-    return euler.max_eigenvalue_tpu(Q, axis, dim=2, var_axis=var_axis)
+    return euler.max_eigenvalue_soa(Q, axis, dim=2, var_axis=var_axis)
 
 
 solver = ADERDGSolver(

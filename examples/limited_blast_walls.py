@@ -1,33 +1,34 @@
 """The production flagship config, end to end: LIMITED ADER-DG with the
-fused Pallas predictor, reflective walls, on a 2-D Euler blast.
+fused GPU cell stage, reflective walls, on a 2-D Euler blast.
 
 A high-pressure disc drives a shock into a closed box: the unlimited
 high-order scheme would go inadmissible at the front; the MOOD limiter
 redoes troubled cells with the Dumbser subcell FV fallback (wall-aware),
-while the candidate step + face fluxes run through the VMEM predictor
-kernel (``LimitedADERDG(accelerator=PallasADERDG(...))``).
+while the candidate step + face fluxes run through the fused kernel
+(``LimitedADERDG(accelerator=TritonADERDG(...))``).  ``--cpu`` runs it on
+the CPU with the kernel in interpret mode.
 
 Run: python examples/limited_blast_walls.py [--cpu]
 """
 
 import sys
 
-import jax
+from exahype_jax.utils.gpu import select_platform
 
-if "--cpu" in sys.argv or __name__ != "__main__":
-    jax.config.update("jax_platforms", "cpu")
+CPU = select_platform("--cpu" in sys.argv)
 
-import jax.numpy as jnp
-import numpy as np
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-from exahype_tpu.models.aderdg import (
+from exahype_jax.models.aderdg import (  # noqa: E402
     ADERDGSolver,
     euler_physics,
     euler_reflect,
     euler_reflect_flux,
 )
-from exahype_tpu.models.aderdg_pallas import PallasADERDG
-from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+from exahype_jax.models.aderdg_triton import TritonADERDG  # noqa: E402
+from exahype_jax.models.limiter import LimitedADERDG, euler_admissible  # noqa: E402
 
 CELLS = 16
 ORDER = 3
@@ -45,10 +46,9 @@ solver = ADERDGSolver(
     reflect_fn=euler_reflect(2),
     reflect_flux_fn=euler_reflect_flux(2),
 )
-# Fused VMEM predictor supplying the limiter's candidate + face fluxes
-# (interpret mode off-TPU; walls auto-route every axis through the
-# boundary-aware XLA face stage).
-accel = PallasADERDG(solver, interpret=jax.default_backend() == "cpu", tile0=2)
+# Fused cell stage supplying the limiter's candidate + face fluxes (walls
+# live in the boundary-aware XLA face stage).
+accel = TritonADERDG(solver, interpret=CPU)
 limited = LimitedADERDG(solver, admissible=euler_admissible(dim=2), accelerator=accel)
 
 # Pressurized disc at the box centre.

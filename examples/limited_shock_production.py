@@ -1,54 +1,45 @@
-"""The PRODUCTION limited configuration, exactly as benched (bench.py's
-second official metric): 3-D compressible-Euler ADER-DG p3 with
+"""The PRODUCTION limited configuration, as benched (bench.py's limited
+cell): 3-D compressible-Euler ADER-DG p3 with
 
-- the fused boundary-faces-only Pallas predictor supplying the candidate
-  AND the per-row face fluxes (its flux contract composes since round 3),
+- the fused GPU cell stage supplying the candidate AND the per-direction
+  face fluxes,
 - a-posteriori MOOD detection (relaxed DMP + Euler admissibility),
-- the ROW-GATHERED subcell FV fallback (`troubled_capacity` counts
-  last-axis rows; each gather moves contiguous lane tiles — the TPU-fast
-  shape), and
+- the ROW-GATHERED subcell FV fallback (``troubled_capacity`` counts
+  last-axis rows; each gather moves whole contiguous rows), and
 - DG/FV interface matching, so the composite conserves to rounding.
 
-On a v5e chip this runs at 1.30 GDOF-updates/s with a 3.9 %-troubled
-planar shock (the unlimited step: 3.62) — see docs/PERFORMANCE.md.
-
 Run: python examples/limited_shock_production.py [--cpu]
-(CPU uses interpret-mode Pallas on a smaller grid.)
+(``--cpu`` runs the kernel in interpret mode on a smaller grid.)
 """
 
 import sys
 
-import jax
+from exahype_jax.utils.gpu import select_platform
 
-CPU = "--cpu" in sys.argv
-if CPU:
-    jax.config.update("jax_platforms", "cpu")
+CPU = select_platform("--cpu" in sys.argv)
 
-import numpy as np
-import jax.numpy as jnp
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-from exahype_tpu.models.aderdg_pallas import PallasADERDG
-from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+from exahype_jax.models.aderdg import ADERDGSolver, euler_physics  # noqa: E402
+from exahype_jax.models.aderdg_triton import TritonADERDG  # noqa: E402
+from exahype_jax.models.limiter import LimitedADERDG, euler_admissible  # noqa: E402
 
-grid_shape = (32, 4, 32) if CPU else (256, 8, 128)
-capacity_rows = 32 if CPU else 256  # last-axis rows, not cells
+grid_shape = (16, 4, 8) if CPU else (64, 64, 64)
+capacity_rows = 32 if CPU else 1024  # last-axis rows, not cells
 
 flux, eig = euler_physics(dim=3, n_real=5)
 solver = ADERDGSolver(
     dim=3, order=3, n_vars=5, grid_shape=grid_shape,
     flux_fn=flux, max_eigenvalue_fn=eig, dx=1.0 / grid_shape[0],
 )
-accel = PallasADERDG(
-    solver, tile0=2 if CPU else 4, boundary_faces_only=True,
-    interpret=CPU, vmem_limit_bytes=126 * 1024 * 1024,
-)
 limited = LimitedADERDG(
     solver,
     admissible=euler_admissible(dim=3, gamma=1.4),
     troubled_capacity=capacity_rows,
     troubled_granularity="row",
-    accelerator=accel,
+    accelerator=TritonADERDG(solver, interpret=CPU),
 )
 
 # Planar Sod-like shock along axis 0.

@@ -27,10 +27,10 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import euler
-from exahype_tpu.models import navier_stokes as ns
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.utils.output import write_vtk_aderdg
+from exahype_jax.models import euler
+from exahype_jax.models import navier_stokes as ns
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.utils.output import write_vtk_aderdg
 
 on_cpu = jax.default_backend() == "cpu"
 cells = 8 if on_cpu else 32

@@ -21,11 +21,11 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import mhd as mhd_mod
-from exahype_tpu.models.fv import build_fv_rusanov_kernel
-from exahype_tpu.parallel import GridSolver, PatchGrid
-from exahype_tpu.utils.config import KernelConfig
-from exahype_tpu.utils.output import assemble_global, disassemble_global
+from exahype_jax.models import mhd as mhd_mod
+from exahype_jax.models.fv import build_fv_rusanov_kernel
+from exahype_jax.parallel import GridSolver, PatchGrid
+from exahype_jax.utils.config import KernelConfig
+from exahype_jax.utils.output import assemble_global, disassemble_global
 
 GAMMA = 5.0 / 3.0
 GX = GY = 8

@@ -81,8 +81,8 @@ def main():
         print(" ", ccode(rhs, assign_to=lhs, contract=False, allow_unknown_functions=True))
 
     # --- Stage 3: what the DSL adds on top of the same SymPy substrate. ---
-    from exahype_tpu import KernelBuilder
-    from exahype_tpu.backends.cpp_backend import CPPPrinter
+    from exahype_jax import KernelBuilder
+    from exahype_jax.backends.cpp_backend import CPPPrinter
 
     kb = KernelBuilder(dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5)
     Q = kb.item("Q")

@@ -24,9 +24,9 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import rmhd as m
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.models.limiter import LimitedADERDG
+from exahype_jax.models import rmhd as m
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.models.limiter import LimitedADERDG
 
 GAMMA = 4.0 / 3.0
 on_cpu = jax.default_backend() == "cpu"
@@ -49,7 +49,7 @@ Y = np.broadcast_to(np.squeeze(coords[1], solver.var_axis), no_var)
 rho = np.ones_like(X)
 p = 10.0 * np.ones_like(X)
 # W up to ~1.2 — the CPU demo grid is tiny; crank toward 0.99/√2 on a
-# real-resolution chip run.
+# real-resolution GPU run.
 vmax = 0.7 / np.sqrt(2.0)
 v = np.stack([-vmax * np.sin(2 * np.pi * Y),
               vmax * np.sin(2 * np.pi * X),

@@ -29,13 +29,13 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import grhd, grhd_cfc
-from exahype_tpu.models.aderdg import (
+from exahype_jax.models import grhd, grhd_cfc
+from exahype_jax.models.aderdg import (
     ADERDGSolver,
     make_dirichlet_fn,
     wrap_var_last,
 )
-from exahype_tpu.utils.output import write_vtk_aderdg
+from exahype_jax.utils.output import write_vtk_aderdg
 
 GAMMA = 5.0 / 3.0
 C2 = 1.0

@@ -16,7 +16,7 @@ Checks printed at the end: frozen materials (bitwise), mirror symmetry
 of the radiated field across the source axis, and the P-wave arrival
 time at the nearest surface receiver from the upper-layer wave speed.
 
-Run on CPU with ``--cpu``; on the chip the grid is lane-tiled.
+Run on CPU with ``--cpu``; on the GPU the grid is larger.
 """
 
 import sys
@@ -29,16 +29,16 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.models.elastic import (
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.models.elastic import (
     N_VARS_3D_HET,
     _speeds,
     elastic3d_free_surface_het,
     elastic3d_heterogeneous,
     sponge_source,
 )
-from exahype_tpu.models.point_source import PointSources, ricker
-from exahype_tpu.models.tracers import TracerAdvector
+from exahype_jax.models.point_source import PointSources, ricker
+from exahype_jax.models.tracers import TracerAdvector
 
 on_cpu = jax.default_backend() == "cpu"
 cells = (9, 9, 6) if on_cpu else (63, 63, 36)

@@ -11,7 +11,7 @@ Strang-split), and `TracerAdvector.sample` (the receivers).
 Checks printed at the end: mirror symmetry of the radiated field across
 the source axis, and the P-wave arrival time at the nearest receiver.
 
-Run on CPU with ``--cpu``; on the chip the grid is lane-tiled.
+Run on CPU with ``--cpu``; on the GPU the grid is larger.
 ``--ck`` selects the Cauchy–Kovalewski linear predictor — the kernel
 class the reference family's generator emits for seismic (linear) PDEs;
 elasticity is exactly linear, so the physics checks are unchanged.
@@ -27,10 +27,10 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.models.elastic import _speeds, elastic, elastic_free_surface
-from exahype_tpu.models.point_source import PointSources, ricker
-from exahype_tpu.models.tracers import TracerAdvector
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.models.elastic import _speeds, elastic, elastic_free_surface
+from exahype_jax.models.point_source import PointSources, ricker
+from exahype_jax.models.tracers import TracerAdvector
 
 on_cpu = jax.default_backend() == "cpu"
 cells = 9 if on_cpu else 128

@@ -14,7 +14,7 @@ Checks printed at the end: the flat limit (hill height 0) matches the
 plain Cartesian solver to rounding, the metric slots stay bitwise
 frozen, and the hill measurably deflects the recorded wavefield.
 
-Run on CPU with ``--cpu``; on the chip the grid is lane-tiled.
+Run on CPU with ``--cpu``; on the GPU the grid is larger.
 """
 
 import sys
@@ -27,8 +27,8 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.models.curvilinear import (
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.models.curvilinear import (
     curvilinear_dissipation_mask,
     curvilinear_material_slots,
     curvilinear_physics,
@@ -36,9 +36,9 @@ from exahype_tpu.models.curvilinear import (
     metric_fields,
     n_vars_curvilinear,
 )
-from exahype_tpu.models.elastic import elastic
-from exahype_tpu.models.point_source import PointSources, ricker
-from exahype_tpu.models.tracers import TracerAdvector
+from exahype_jax.models.elastic import elastic
+from exahype_jax.models.point_source import PointSources, ricker
+from exahype_jax.models.tracers import TracerAdvector
 
 on_cpu = jax.default_backend() == "cpu"
 cells = 9 if on_cpu else 96

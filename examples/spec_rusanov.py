@@ -4,7 +4,7 @@
     exahype-opt examples/spec_rusanov.py --spec --emit mlir
 """
 
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 
 def build():

@@ -19,7 +19,7 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models.swe import lake_at_rest, make_swe_solver
+from exahype_jax.models.swe import lake_at_rest, make_swe_solver
 
 cells = 16 if jax.default_backend() == "cpu" else 64
 solver = make_swe_solver(

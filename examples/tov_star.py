@@ -32,8 +32,8 @@ if "--cpu" in sys.argv or __name__ != "__main__":
 import numpy as np
 import jax.numpy as jnp
 
-from exahype_tpu.models import grhd_cfc, tov
-from exahype_tpu.models.aderdg import (
+from exahype_jax.models import grhd_cfc, tov
+from exahype_jax.models.aderdg import (
     ADERDGSolver,
     make_dirichlet_fn,
     wrap_var_last,
@@ -61,7 +61,7 @@ def main():
     coupled = "--coupled" in sys.argv
 
     if coupled:
-        from exahype_tpu.models.z4_matter import make_z4_matter_solver
+        from exahype_jax.models.z4_matter import make_z4_matter_solver
 
         def state(x, y, z):
             return tov.tov_z4_matter_state(

@@ -13,7 +13,7 @@ vortex rigidly with the background velocity, so:
 The script verifies the centre-tracer drift against the exact value and
 prints the ring tracers' accumulated rotation angle.
 
-Run on CPU with ``--cpu``; on the chip the grid is lane-tiled.
+Run on CPU with ``--cpu``; on the GPU the grid is larger.
 """
 
 import sys
@@ -26,8 +26,8 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-from exahype_tpu.models.tracers import TracerAdvector, euler_velocity
+from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+from exahype_jax.models.tracers import TracerAdvector, euler_velocity
 
 GAMMA = 1.4
 dim, order = 2, 3

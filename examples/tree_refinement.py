@@ -1,7 +1,7 @@
 """Tree-structured refinement: an arbitrary scattered set of fine patches.
 
 The box-based hierarchy (``examples/dynamic_refinement.py``) refines one
-rectangle.  :class:`exahype_tpu.parallel.pool.PatchPoolRefinement` lifts
+rectangle.  :class:`exahype_jax.parallel.pool.PatchPoolRefinement` lifts
 that restriction: ANY set of coarse patches refines into a static-capacity
 pool of fine patches, and the pattern (slot coordinates / activity /
 neighbour tables) is plain array data consumed by ONE jitted step — the
@@ -26,11 +26,11 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import hyperbolic
-from exahype_tpu.models.fv import build_fv_rusanov_kernel
-from exahype_tpu.parallel import DynamicPoolRefinement, GridSolver, PatchGrid
-from exahype_tpu.utils.config import KernelConfig
-from exahype_tpu.utils.output import assemble_global, disassemble_global
+from exahype_jax.models import hyperbolic
+from exahype_jax.models.fv import build_fv_rusanov_kernel
+from exahype_jax.parallel import DynamicPoolRefinement, GridSolver, PatchGrid
+from exahype_jax.utils.config import KernelConfig
+from exahype_jax.utils.output import assemble_global, disassemble_global
 
 GX = GY = 6
 PATCH = 4

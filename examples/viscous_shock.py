@@ -25,10 +25,10 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import euler
-from exahype_tpu.models import navier_stokes as ns
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+from exahype_jax.models import euler
+from exahype_jax.models import navier_stokes as ns
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
 
 on_cpu = jax.default_backend() == "cpu"
 cells = 16 if on_cpu else 64

@@ -2,8 +2,7 @@
 
 The reference family's flagship astrophysics application (ExaGRyPE)
 evolves the Einstein equations as a first-order fluxless NCP system with
-ADER-DG.  This example runs that configuration end to end on the TPU
-stack: the 38-variable first-order Z4 system (`models/z4.py`, harmonic
+ADER-DG.  This example runs that configuration end to end: the 38-variable first-order Z4 system (`models/z4.py`, harmonic
 slicing, zero shift) on the canonical Apples-with-Apples gauge-wave
 metric
 
@@ -32,7 +31,7 @@ if "--cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models.z4 import (
+from exahype_jax.models.z4 import (
     gauge_wave_state,
     make_z4_solver,
     solver_constraints,
@@ -43,10 +42,8 @@ cells = 8 if on_cpu else 64
 order = 3
 t_end = 0.1
 
-# impl="soa" is the production TPU configuration (component-unrolled
-# RHS, measured 26x the einsum layout on chip — docs/PERFORMANCE.md
-# "Dynamic GR"); identical algebra to rounding, so the CPU accuracy
-# assertions below hold for either.
+# impl="soa": the component-unrolled RHS; identical algebra to rounding,
+# so the CPU accuracy assertions below hold for either layout.
 solver = make_z4_solver(
     dim=2, order=order, grid_shape=(cells, 2), dx=1.0 / cells,
     slicing="harmonic", f=1.0, impl="einsum" if on_cpu else "soa",

@@ -7,12 +7,12 @@ set -euo pipefail
 
 workdir="$(mktemp -d)"
 repo="$(cd "$(dirname "$0")/.." && pwd)"
-native="$repo/exahype_tpu/native"
+native="$repo/exahype_jax/native"
 
 echo "== regenerating kernel from the DSL =="
 python - <<PY
-from exahype_tpu.backends.cpp_backend import CPPPrinter
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.backends.cpp_backend import CPPPrinter
+from exahype_jax.models.rusanov import build_rusanov_kernel
 kernel = build_rusanov_kernel(dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5)
 CPPPrinter(kernel, policy="golden", header="euler.h").file("$workdir/generated_kernel.cpp")
 print("wrote $workdir/generated_kernel.cpp")

@@ -1,8 +1,10 @@
 """Test configuration.
 
-Tests run on CPU with 8 virtual XLA devices so multi-chip sharding paths
-(mesh + ppermute halo exchange) are exercised without TPU hardware, per the
-standard JAX host-platform emulation recipe.  f64 is enabled for 1e-12
+Tests run on CPU with 8 virtual XLA devices so multi-device sharding paths
+(mesh + ppermute halo exchange) are exercised without accelerators, per the
+standard JAX host-platform emulation recipe.  Tests marked ``gpu`` take the
+``gpu_device`` fixture and skip here; ``chip_smoke.py`` calls them on the
+card.  f64 is enabled for 1e-12
 differential parity against the NumPy oracle.
 
 Something in the environment may import jax before this conftest (pytest
@@ -55,6 +57,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (excluded from the default fast tier)"
     )
+    config.addinivalue_line(
+        "markers", "gpu: runs on the GPU only (skips elsewhere; chip_smoke.py runs it)"
+    )
 
 
 def pytest_collection_modifyitems(config, items):
@@ -62,3 +67,13 @@ def pytest_collection_modifyitems(config, items):
         nodeid = item.nodeid.replace("\\", "/")
         if nodeid in _SLOW_IDS:
             item.add_marker(pytest.mark.slow)
+
+
+@pytest.fixture
+def gpu_device():
+    """The first GPU device, or a skip: tests marked ``gpu`` run on the card
+    (``python chip_smoke.py`` calls them in its own process)."""
+    device = jax.devices()[0]
+    if device.platform != "gpu":
+        pytest.skip("needs a GPU (run through chip_smoke.py on the card)")
+    return device

@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models import euler
-from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics, wrap_var_last
+from exahype_jax.models import euler
+from exahype_jax.models.aderdg import ADERDGSolver, euler_physics, wrap_var_last
 
 
 def advection_physics(velocity):
@@ -200,7 +200,7 @@ def test_aderdg_3d_runs():
 
 def test_wrap_var_last_adapter():
     """Var-axis-last model callbacks plug in through wrap_var_last."""
-    from exahype_tpu.models import hyperbolic
+    from exahype_jax.models import hyperbolic
 
     flux_b, eig_b = hyperbolic.shallow_water(dim=2)
     solver = ADERDGSolver(
@@ -233,7 +233,7 @@ def test_aderdg_sharded_matches_single_device():
     import jax
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
 
     solver = euler_density_wave_solver(cells=8, order=2)
     Q0 = euler_density_wave_state(solver)
@@ -276,26 +276,10 @@ def test_convergence_preserved_with_flux_reuse():
     assert rate > 3.4, f"rate {rate:.2f} with flux reuse, errors {errors}"
 
 
-def test_pallas_aderdg_matches_base_solver():
-    """The fused VMEM predictor + XLA epilogue must equal the pure-XLA step."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = euler_density_wave_solver(cells=8, order=3)
-    Q0 = euler_density_wave_state(solver)
-    ref = np.asarray(solver.step(Q0, 1e-3))
-    fused = PallasADERDG(solver, interpret=True, tile0=2)
-    got = np.asarray(fused.step(Q0, 1e-3))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-13)
-    # And over several scanned steps.
-    ref_run = np.asarray(solver.run(Q0, 3, 1e-3))
-    got_run = np.asarray(fused.run(Q0, 3, 1e-3))
-    np.testing.assert_allclose(got_run, ref_run, rtol=0, atol=1e-12)
-
-
 def test_reflective_walls_conserve_mass_and_energy():
     """Reflective box: still fluid stays still; moving gas keeps total mass
     and energy (walls transmit only pressure) and stays finite."""
-    from exahype_tpu.models.aderdg import euler_reflect, euler_reflect_flux
+    from exahype_jax.models.aderdg import euler_reflect, euler_reflect_flux
 
     dim = 2
     flux, eig = euler_physics(dim=dim, n_real=4)
@@ -338,7 +322,7 @@ def test_outflow_walls_uniform_flow_exact_and_bump_exits():
     would bounce — this discriminates the BC); a compact density bump
     advects OUT of the domain leaving the uniform background, with no
     periodic wrap-around and no visible reflection."""
-    from exahype_tpu.models import euler
+    from exahype_jax.models import euler
 
     dim = 2
     flux, eig = euler_physics(dim=dim, n_real=4)
@@ -399,7 +383,7 @@ def test_farfield_walls_hold_inflow_and_absorb_exit():
     a compact bump exits while the INFLOW side is held at the farfield —
     the final state returns to the background EVERYWHERE (the drift that
     zero-gradient outflow leaves at the inflow side is gone)."""
-    from exahype_tpu.models import euler
+    from exahype_jax.models import euler
 
     dim = 2
     flux, eig = euler_physics(dim=dim, n_real=4)
@@ -435,7 +419,7 @@ def test_farfield_walls_hold_inflow_and_absorb_exit():
 def test_outflow_limiter_composes():
     """Round 4 lifted the round-3 guard: the limiter now ACCEPTS outflow
     solvers (full coverage in tests/test_limiter_walls.py)."""
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models.limiter import LimitedADERDG
 
     flux, eig = euler_physics(dim=2, n_real=4)
     solver = ADERDGSolver(
@@ -517,24 +501,6 @@ def test_source_advection_decay_manufactured():
     assert err < 5e-5, f"manufactured-solution error {err}"
     # and the decay really happened (amplitude dropped by e^{-kt})
     assert np.max(np.abs(out)) < 0.85 * np.max(np.abs(np.asarray(q0)))
-
-
-def test_pallas_source_parity():
-    """Fused Pallas step with a source term matches the base solver."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    flux, eig = advection_physics((1.0, 0.5))
-    solver = ADERDGSolver(
-        dim=2, order=2, n_vars=1, grid_shape=(8, 128), flux_fn=flux,
-        max_eigenvalue_fn=eig, dx=1.0 / 8,
-        source_fn=lambda Q, va: -0.7 * Q + 0.2,
-    )
-    rng = np.random.default_rng(3)
-    q0 = jnp.asarray(1.0 + 0.1 * rng.random(solver.state_shape))
-    ref = np.asarray(solver.step(q0, 1e-3))
-    fused = PallasADERDG(solver, interpret=True, tile0=2)
-    got = np.asarray(fused.step(q0, 1e-3))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-13)
 
 
 # ------------------------------------------- non-conservative products (NCP)
@@ -645,27 +611,6 @@ def test_ncp_burgers_primitive_form():
     np.testing.assert_allclose(b, a, rtol=0, atol=2e-4)
 
 
-def test_pallas_ncp_parity():
-    """Fused Pallas step with an NCP term matches the base solver."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    def eig(Q, axis, var_axis):
-        return jnp.squeeze(jnp.abs(Q), axis=var_axis)
-
-    solver = ADERDGSolver(
-        dim=2, order=2, n_vars=1, grid_shape=(8, 128),
-        flux_fn=lambda Q, axis, va: jnp.zeros_like(Q),
-        ncp_fn=lambda Q, dQ, axis, va: Q * dQ if axis == 0 else 0.5 * dQ,
-        max_eigenvalue_fn=eig, dx=1.0 / 8,
-    )
-    rng = np.random.default_rng(7)
-    q0 = jnp.asarray(0.5 + 0.1 * rng.random(solver.state_shape))
-    ref = np.asarray(solver.step(q0, 1e-3))
-    fused = PallasADERDG(solver, interpret=True, tile0=2)
-    got = np.asarray(fused.step(q0, 1e-3))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-13)
-
-
 # --------------------------------------------------------- anisotropic grids
 
 
@@ -709,25 +654,10 @@ def test_anisotropic_dx_advection():
     )
 
 
-def test_anisotropic_dx_pallas_parity():
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    flux, eig = advection_physics((1.0, 0.5))
-    solver = ADERDGSolver(
-        dim=2, order=2, n_vars=1, grid_shape=(8, 128), flux_fn=flux,
-        max_eigenvalue_fn=eig, dx=(1.0 / 8, 3.0 / 128),
-    )
-    rng = np.random.default_rng(5)
-    q0 = jnp.asarray(rng.random(solver.state_shape))
-    ref = np.asarray(solver.step(q0, 1e-3))
-    got = np.asarray(PallasADERDG(solver, interpret=True, tile0=2).step(q0, 1e-3))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-13)
-
-
 def test_limiter_anisotropic_dx_runs():
     """The limiter supports per-axis dx end to end (fallbacks and interface
     matching use per-direction lambda)."""
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models.limiter import LimitedADERDG
 
     flux, eig = advection_physics((1.0, 0.5))
     solver = ADERDGSolver(
@@ -749,153 +679,6 @@ def test_limiter_anisotropic_dx_runs():
     )
 
 
-def test_pallas_fused_interior_riemann_modes_agree():
-    """fuse_interior_riemann=True (axes>0 solved in-kernel) and False (all
-    axes in the XLA epilogue) agree with each other and the base solver."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    flux, eig = euler_physics(dim=3, n_real=5)
-    solver = ADERDGSolver(
-        dim=3, order=2, n_vars=5, grid_shape=(4, 8, 128), flux_fn=flux,
-        max_eigenvalue_fn=eig, dx=0.25,
-    )
-    rng = np.random.default_rng(1)
-    no_var = solver.state_shape[: solver.var_axis] + solver.state_shape[solver.var_axis + 1 :]
-    rho = 1.0 + 0.2 * rng.random(no_var)
-    comps = [rho, rho, 0.5 * rho, 0.25 * rho, 5.0 + 0.66 * rho]
-    Q0 = jnp.asarray(np.stack(comps, axis=solver.var_axis))
-    ref = np.asarray(solver.step(Q0, 1e-3))
-    on = PallasADERDG(solver, interpret=True, tile0=2, fuse_interior_riemann=True)
-    off = PallasADERDG(solver, interpret=True, tile0=2, fuse_interior_riemann=False)
-    got_on = np.asarray(on.step(Q0, 1e-3))
-    got_off = np.asarray(off.step(Q0, 1e-3))
-    np.testing.assert_allclose(got_on, ref, rtol=0, atol=1e-12)
-    np.testing.assert_allclose(got_off, ref, rtol=0, atol=1e-12)
-
-
-def test_pallas_reflective_matches_base():
-    """Reflective walls on the fused path: the predictor kernel is
-    boundary-independent; the epilogue reuses the base solver's
-    boundary-aware face stage. Matches the base step to 1e-12."""
-    from exahype_tpu.models.aderdg import euler_reflect, euler_reflect_flux
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    flux, eig = euler_physics(dim=2, n_real=4)
-    solver = ADERDGSolver(
-        dim=2, order=2, n_vars=4, grid_shape=(8, 128), flux_fn=flux,
-        max_eigenvalue_fn=eig, dx=1.0 / 8, boundary="reflective",
-        reflect_fn=euler_reflect(2), reflect_flux_fn=euler_reflect_flux(2),
-    )
-    rng = np.random.default_rng(6)
-    no_var = solver.state_shape[: solver.var_axis] + solver.state_shape[solver.var_axis + 1 :]
-    rho = 1.0 + 0.2 * rng.random(no_var)
-    Q0 = jnp.asarray(np.stack(
-        [rho, 0.1 * rho, -0.1 * rho, 5.0 + 0.6 * rho], axis=solver.var_axis))
-    ref = np.asarray(solver.step(Q0, 1e-3))
-    fused = PallasADERDG(solver, interpret=True, tile0=2)
-    assert fused.fuse_interior_riemann is False
-    got = np.asarray(fused.step(Q0, 1e-3))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
-
-    # multi-step energy behavior matches too (walls stay walls)
-    ref_run = np.asarray(solver.run(Q0, 5, 1e-3))
-    got_run = np.asarray(fused.run(Q0, 5, 1e-3))
-    np.testing.assert_allclose(got_run, ref_run, rtol=0, atol=1e-11)
-
-
-def test_pallas_step_face_fluxes_match_base():
-    """return_face_fluxes=True on the fused path: the state AND every
-    per-direction high-face Rusanov flux must match the base solver (the
-    fused interior axes emit theirs from inside the kernel)."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = euler_density_wave_solver(cells=8, order=3)
-    Q0 = euler_density_wave_state(solver)
-    ref, ref_fluxes = solver.step(Q0, 1e-3, return_face_fluxes=True)
-
-    for fuse in (True, False):
-        fused = PallasADERDG(
-            solver, interpret=True, tile0=2, fuse_interior_riemann=fuse
-        )
-        got, fluxes = fused.step(Q0, 1e-3, return_face_fluxes=True)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(ref), rtol=0, atol=1e-12
-        )
-        assert len(fluxes) == solver.dim
-        for d in range(solver.dim):
-            np.testing.assert_allclose(
-                np.asarray(fluxes[d]), np.asarray(ref_fluxes[d]),
-                rtol=0, atol=1e-12, err_msg=f"direction {d}, fuse={fuse}",
-            )
-
-
-def test_pallas_boundary_faces_only_matches_base():
-    """boundary_faces_only: intra-tile axis-0 Riemann solves move into the
-    kernel, only tile-boundary faces reach the XLA epilogue — numerics must
-    match the base solver exactly (periodic, flux-form)."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = euler_density_wave_solver(cells=8, order=3)
-    Q0 = euler_density_wave_state(solver)
-    ref = np.asarray(solver.step(Q0, 1e-3))
-    for tile0 in (2, 4):
-        fused = PallasADERDG(
-            solver, interpret=True, tile0=tile0, boundary_faces_only=True
-        )
-        assert fused.boundary_faces_only
-        got = np.asarray(fused.step(Q0, 1e-3))
-        np.testing.assert_allclose(
-            got, ref, rtol=0, atol=1e-12, err_msg=f"tile0={tile0}"
-        )
-    # Multi-step through scan as well.
-    fused = PallasADERDG(
-        solver, interpret=True, tile0=2, boundary_faces_only=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(fused.run(Q0, 3, 1e-3)),
-        np.asarray(solver.run(Q0, 3, 1e-3)),
-        rtol=0,
-        atol=1e-11,
-    )
-
-
-def test_pallas_boundary_faces_only_guards():
-    """The flag degrades gracefully: tile0=1 (no intra faces), NCP solvers,
-    and reflective walls all fall back to the standard epilogue."""
-    from exahype_tpu.models.aderdg import euler_reflect, euler_reflect_flux
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = euler_density_wave_solver(cells=8, order=2)
-    f1 = PallasADERDG(solver, interpret=True, tile0=1, boundary_faces_only=True)
-    f1.build()
-    assert not f1.boundary_faces_only
-
-    flux, eig = euler_physics(dim=2, n_real=4)
-    refl = ADERDGSolver(
-        dim=2, order=2, n_vars=4, grid_shape=(8, 8), flux_fn=flux,
-        max_eigenvalue_fn=eig, dx=1.0 / 8, boundary="reflective",
-        reflect_fn=euler_reflect(2), reflect_flux_fn=euler_reflect_flux(2),
-    )
-    f2 = PallasADERDG(refl, interpret=True, tile0=2, boundary_faces_only=True)
-    assert not f2.boundary_faces_only
-
-    # return_face_fluxes now composes with the shrunken face outputs: the
-    # kernel emits the intra-tile axis-0 fluxes + the fused axes' full
-    # fluxes, and the epilogue's boundary fluxes interleave back to the
-    # full per-row contract — matching the base solver exactly.
-    f3 = PallasADERDG(solver, interpret=True, tile0=2, boundary_faces_only=True)
-    Q0 = euler_density_wave_state(solver)
-    new_b, fluxes_b = f3.step(Q0, 1e-3, return_face_fluxes=True)
-    new_ref, fluxes_ref = solver.step(Q0, 1e-3, return_face_fluxes=True)
-    np.testing.assert_allclose(
-        np.asarray(new_b), np.asarray(new_ref), rtol=0, atol=1e-11
-    )
-    for a, b in zip(fluxes_b, fluxes_ref):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-11
-        )
-
-
 @pytest.mark.parametrize(
     "order,cells_pair,steps_per_cell,min_rate",
     [(5, (2, 4), 6, 5.4), (7, (2, 4), 8, 7.2)],
@@ -903,8 +686,7 @@ def test_pallas_boundary_faces_only_guards():
 def test_high_order_convergence_rate(order, cells_pair, steps_per_cell, min_rate):
     """VERDICT r2 item 6: order scaling beyond p3 — the operators are
     order-generic, so p5/p7 must converge at order+1 on smooth advection
-    (p7's n_nodes=8 is exactly the basis size PERFORMANCE.md names as
-    MXU-viable; the perf probe lives in scripts/mxu_probe.py)."""
+    (p7's n_nodes=8 needs no node-axis padding in the fused GPU kernel)."""
     velocity = (1.0, 0.5)
     t_end = 0.05
     errors = []
@@ -922,141 +704,3 @@ def test_high_order_convergence_rate(order, cells_pair, steps_per_cell, min_rate
     )
 
 
-def test_pallas_streamed_predictor_p5_parity():
-    """The streamed (time-slice-outer) predictor trace order — what lets
-    p5/p7 blocks fit VMEM — matches the base solver at order 5 too (the
-    order tiers exercise different unroll depths of the streamed loop)."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = euler_density_wave_solver(cells=6, order=5)
-    Q0 = euler_density_wave_state(solver)
-    ref = np.asarray(solver.step(Q0, 1e-3))
-    fused = PallasADERDG(solver, interpret=True, tile0=2, dtype=np.float64)
-    got = np.asarray(fused.step(Q0, 1e-3))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-13)
-
-
-def test_pallas_picard_loop_matches_unrolled():
-    """Forcing the Picard fori_loop at low order matches the unrolled
-    predictor (the loop is auto-on only for n_nodes >= 5, where unrolled
-    register pressure exceeds VMEM; both paths must agree everywhere)."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = euler_density_wave_solver(cells=8, order=3)
-    Q0 = euler_density_wave_state(solver)
-    un = np.asarray(
-        PallasADERDG(
-            solver, interpret=True, tile0=2, dtype=np.float64,
-            picard_loop=False,
-        ).step(Q0, 1e-3)
-    )
-    lo = np.asarray(
-        PallasADERDG(
-            solver, interpret=True, tile0=2, dtype=np.float64,
-            picard_loop=True,
-        ).step(Q0, 1e-3)
-    )
-    np.testing.assert_allclose(lo, un, rtol=0, atol=1e-13)
-
-
-def test_pallas_slice_loop_parity():
-    """The doubly-streamed predictor (fori over Picard iterations AND
-    time slices, with branchlessly-selected quadrature scalars) matches
-    the base solver; auto-on at n_nodes >= 7 where one unrolled iteration
-    alone spills ~284 MB of registers."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = euler_density_wave_solver(cells=6, order=5)
-    Q0 = euler_density_wave_state(solver)
-    ref = np.asarray(solver.step(Q0, 1e-3))
-    got = np.asarray(
-        PallasADERDG(
-            solver, interpret=True, tile0=2, dtype=np.float64,
-            slice_loop=True,
-        ).step(Q0, 1e-3)
-    )
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
-
-
-def test_pallas_slice_loop_source_and_ncp_parity():
-    """The slice-streamed predictor's source and NCP branches (inside the
-    rotating fori bodies) match the base solver."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    flux, eig = advection_physics((1.0, 0.5))
-    src = ADERDGSolver(
-        dim=2, order=2, n_vars=1, grid_shape=(8, 8), flux_fn=flux,
-        max_eigenvalue_fn=eig, dx=1.0 / 8,
-        source_fn=lambda Q, va: -0.7 * Q + 0.2,
-    )
-    rng = np.random.default_rng(3)
-    q0 = jnp.asarray(1.0 + 0.1 * rng.random(src.state_shape))
-    ref = np.asarray(src.step(q0, 1e-3))
-    got = np.asarray(
-        PallasADERDG(
-            src, interpret=True, tile0=2, dtype=np.float64, slice_loop=True
-        ).step(q0, 1e-3)
-    )
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-13)
-
-    velocity = (1.0, 0.5)
-    ncp = ADERDGSolver(
-        dim=2, order=3, n_vars=1, grid_shape=(8, 8),
-        flux_fn=lambda Q, axis, va: jnp.zeros_like(Q),
-        ncp_fn=lambda Q, dQ, axis, va: float(velocity[axis]) * dQ,
-        max_eigenvalue_fn=eig, dx=1.0 / 8,
-    )
-    q0 = jnp.asarray(1.0 + 0.1 * rng.random(ncp.state_shape))
-    ref = np.asarray(ncp.step(q0, 1e-3))
-    got = np.asarray(
-        PallasADERDG(
-            ncp, interpret=True, tile0=2, dtype=np.float64, slice_loop=True
-        ).step(q0, 1e-3)
-    )
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-13)
-
-
-def test_fused_rhs_all_hook_pallas_parity():
-    """The Pallas predictor consumes ``rhs_all_fn`` (one fused algebra
-    evaluation per Picard slice + the two-evaluation epilogue NCP —
-    the code-size lever that lets 38-var Z4 compile on chip): with a
-    synthesized hook ``rhs_all = −Σ_d ncp(Q, grads[d], d)`` on the SWE
-    NCP system, every kernel mode matches the base solver's own
-    rhs_all path, which in turn matches the plain NCP path."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.models.swe import lake_at_rest, make_swe_solver, swe_physics
-
-    dim, cells = 2, 4
-    flux, eig, ncp = swe_physics(dim)
-
-    def rhs_all(Q, grads, va):
-        out = -ncp(Q, grads[0], 0, va)
-        for d in range(1, dim):
-            out = out - ncp(Q, grads[d], d, va)
-        return out
-
-    base = make_swe_solver(dim, 2, (cells, cells), dx=1.0 / cells)
-    fused_base = make_swe_solver(dim, 2, (cells, cells), dx=1.0 / cells,
-                                 rhs_all_fn=rhs_all)
-    Q = lake_at_rest(base)
-    # Perturb so the answer is non-trivial (dam-break-ish bump).
-    q = jnp.moveaxis(Q, base.var_axis, -1)
-    x = np.linspace(0, 1, q.shape[-2], endpoint=False)
-    q = q.at[..., 0].add(
-        jnp.asarray(0.3 * np.exp(-20 * (x - 0.5) ** 2))
-    )
-    Q = jnp.moveaxis(q, -1, base.var_axis)
-    ref = np.asarray(base.step(Q, 1e-3))
-    ref_fused = np.asarray(fused_base.step(Q, 1e-3))
-    # The fused-hook base path itself is only a refactor: tight parity.
-    np.testing.assert_allclose(ref_fused, ref, rtol=0, atol=1e-12)
-    for kw in (
-        dict(),                                        # unrolled
-        dict(picard_loop=True),                        # iteration fori
-        dict(picard_loop=True, slice_loop=True),       # doubly streamed
-        dict(fuse_interior_riemann=False),
-    ):
-        fused = PallasADERDG(fused_base, interpret=True, tile0=2, **kw)
-        got = np.asarray(fused.step(Q, 1e-3))
-        np.testing.assert_allclose(got, ref_fused, rtol=0, atol=1e-12,
-                                   err_msg=str(kw))

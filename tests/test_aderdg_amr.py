@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-from exahype_tpu.models.aderdg_amr import ADERDGNestedRefinement
-from exahype_tpu.utils.errors import SemanticError
+from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+from exahype_jax.models.aderdg_amr import ADERDGNestedRefinement
+from exahype_jax.utils.errors import SemanticError
 from tests.test_aderdg import euler_density_wave_solver, euler_density_wave_state
 
 
@@ -22,7 +22,7 @@ def make_amr(cells=6, order=2, lo=(1, 1), hi=(4, 4), factor=3, **kw):
 def test_refine_operators_projection_identity():
     """R @ P = I: restriction of the prolonged coarse solution reproduces
     it exactly (polynomial interpolation + L2 projection)."""
-    from exahype_tpu.models.dg import refine_interpolation, refine_restriction
+    from exahype_jax.models.dg import refine_interpolation, refine_restriction
 
     for order in (1, 2, 3):
         for r in (2, 3):
@@ -153,7 +153,7 @@ def test_dynamic_aderdg_refinement_tracks_and_conserves():
     composite mass/energy stay conserved to rounding across re-grid events
     (restrict-before / polynomial-prolong-after preserve means; refluxing
     conserves within chunks)."""
-    from exahype_tpu.models.aderdg_amr import DynamicADERDGRefinement
+    from exahype_jax.models.aderdg_amr import DynamicADERDGRefinement
 
     solver = euler_density_wave_solver(cells=8, order=2)
     # A localized density pulse (sharper score peak than the global wave).
@@ -189,7 +189,7 @@ def test_limited_fine_level_box_conserves():
     limiter (differs from the unlimited hierarchy)."""
     import jax.numpy as jnp
 
-    from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+    from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
 
     solver = euler_density_wave_solver(cells=6, order=2)
     # A pressure bump steep enough to fire the subcell limiter.

@@ -15,10 +15,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.backends.jax_backend import JAXPrinter
-from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-from exahype_tpu.models.fv import build_fv_rusanov_kernel
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.backends.jax_backend import JAXPrinter
+from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+from exahype_jax.models.fv import build_fv_rusanov_kernel
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 
 def euler_state(kb, seed=0):
@@ -99,16 +99,16 @@ def test_grad_through_time_loop_with_remat():
     """Adjoint of a multi-step simulation: grad of a final-state loss w.r.t.
     the initial state through a scanned time loop (with rematerialization to
     bound memory) — differentiable simulation end to end."""
-    from exahype_tpu.models import hyperbolic
-    from exahype_tpu.parallel import GridSolver, PatchGrid
-    from exahype_tpu.utils.config import KernelConfig
+    from exahype_jax.models import hyperbolic
+    from exahype_jax.parallel import GridSolver, PatchGrid
+    from exahype_jax.utils.config import KernelConfig
 
     cfg = KernelConfig(
         dim=2, patch_size=4, halo_size=1, n_real=1, n_aux=0, n_patches=4
     )
     grid = PatchGrid(config=cfg, grid_shape=(2, 2))
     flux, eig = hyperbolic.advection((1.0, 0.5))
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
 
     kb = build_fv_rusanov_kernel(
         dim=2, patch_size=4, halo_size=1, n_real=1, n_aux=0, n_patches=4,
@@ -144,7 +144,7 @@ def test_grad_through_source_and_ncp_terms():
     """Gradients flow through source and NCP contributions: d/dk of the
     decay-source solution matches -t*exp(-kt)*q0, and an NCP step is
     differentiable with finite gradients."""
-    from exahype_tpu.models.aderdg import ADERDGSolver
+    from exahype_jax.models.aderdg import ADERDGSolver
 
     def zero_flux(Q, axis, va):
         return jnp.zeros_like(Q)
@@ -191,10 +191,10 @@ def test_grad_through_tree_amr_step():
     """Differentiable AMR: gradients flow through the whole coupled
     pool step (coarse kernel, halo gathers, restriction scatter,
     refluxing) and match finite differences on a probe direction."""
-    from exahype_tpu.models import hyperbolic
-    from exahype_tpu.parallel import GridSolver, PatchGrid
-    from exahype_tpu.parallel.pool import PatchPoolRefinement
-    from exahype_tpu.utils.config import KernelConfig
+    from exahype_jax.models import hyperbolic
+    from exahype_jax.parallel import GridSolver, PatchGrid
+    from exahype_jax.parallel.pool import PatchPoolRefinement
+    from exahype_jax.utils.config import KernelConfig
 
     gx = gy = 4
     cfg = KernelConfig(
@@ -235,8 +235,8 @@ def test_grad_through_rmhd_con2prim():
     differences."""
     import numpy as np
 
-    from exahype_tpu.models import rmhd as m
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import rmhd as m
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
 
     flux, eig = m.rmhd(iters=8)
     s = ADERDGSolver(

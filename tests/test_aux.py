@@ -9,12 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models import build_rusanov_kernel, euler
-from exahype_tpu.parallel import GridSolver, PatchGrid
-from exahype_tpu.parallel.driver import DriverConfig, TimeLoopDriver
-from exahype_tpu.utils.checkpoint import CheckpointManager
-from exahype_tpu.utils.config import KernelConfig
-from exahype_tpu.utils.profiling import estimate_cost, time_fn
+from exahype_jax.models import build_rusanov_kernel, euler
+from exahype_jax.parallel import GridSolver, PatchGrid
+from exahype_jax.parallel.driver import DriverConfig, TimeLoopDriver
+from exahype_jax.utils.checkpoint import CheckpointManager
+from exahype_jax.utils.config import KernelConfig
+from exahype_jax.utils.profiling import estimate_cost, time_fn
 
 
 def test_cost_model_scales_with_patches():
@@ -24,12 +24,12 @@ def test_cost_model_scales_with_patches():
     assert c8.flops == 8 * c1.flops
     assert c8.bytes_total == 8 * c1.bytes_total
     assert c1.flops > 0 and c1.arithmetic_intensity > 0
-    assert c1.roofline_seconds() > 0
+    assert c1.roofline_seconds(67e12, 3.35e12) > 0
 
 
 def test_time_fn_runs():
     kb = build_rusanov_kernel()
-    from exahype_tpu.backends.jax_backend import JAXPrinter
+    from exahype_jax.backends.jax_backend import JAXPrinter
 
     fn = JAXPrinter(kb).jit(donate_input=False)
     rng = np.random.default_rng(0)
@@ -84,7 +84,7 @@ def test_driver_runs_and_checkpoints(tmp_path, caplog):
         ),
     )
     Q0 = euler_state(solver.grid)
-    with caplog.at_level(logging.INFO, logger="exahype_tpu.driver"):
+    with caplog.at_level(logging.INFO, logger="exahype_jax.driver"):
         Q, t, stats = driver.run(Q0, n_steps=5, dt=1e-3)
     assert stats["steps"] == 5
     assert t == pytest.approx(5e-3)
@@ -146,7 +146,7 @@ def test_driver_elastic_recovery(tmp_path, caplog):
             return Qn, t_inc
 
     driver._chunk_fns[1] = PoisonOnce(driver._chunk_fn(1))
-    with caplog.at_level(logging.WARNING, logger="exahype_tpu.driver"):
+    with caplog.at_level(logging.WARNING, logger="exahype_jax.driver"):
         Q2, t2, stats2 = driver.run(np.asarray(Q), n_steps=3, dt=1e-3)
     assert stats2["recoveries"] == 1
     assert np.isfinite(np.asarray(Q2)).all()
@@ -154,8 +154,7 @@ def test_driver_elastic_recovery(tmp_path, caplog):
 
 
 def test_output_writers(tmp_path):
-    from exahype_tpu.parallel import TpuPatchGrid
-    from exahype_tpu.utils.output import assemble_global, write_npz, write_vtk
+    from exahype_jax.utils.output import assemble_global, write_npz, write_vtk
 
     cfg = KernelConfig(dim=2, patch_size=3, halo_size=1, n_real=2, n_aux=0, n_patches=4)
     grid = PatchGrid(config=cfg, grid_shape=(2, 2))
@@ -166,13 +165,6 @@ def test_output_writers(tmp_path):
     assert glob.shape == (6, 6, 2)
     # Spot-check patch (1,0) interior cell (0,0) lands at global (3, 0).
     np.testing.assert_array_equal(glob[3, 0], Q[1, 0, 1, 1])
-
-    # SoA-P layout assembles identically.
-    tgrid = TpuPatchGrid(config=cfg, grid_shape=(2, 2))
-    import jax.numpy as jnp
-
-    Qt = tgrid.from_aos(jnp.asarray(grid.to_batched(jnp.asarray(Q))))
-    np.testing.assert_allclose(assemble_global(tgrid, Qt), glob)
 
     npz = write_npz(tmp_path / "out.npz", grid, Q, var_names=["rho", "E"])
     loaded = np.load(npz)
@@ -194,8 +186,8 @@ def test_aderdg_output_writers(tmp_path):
     round-trips values in x-fastest order."""
     import jax.numpy as jnp
 
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.utils.output import (
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.utils.output import (
         aderdg_cell_means,
         aderdg_resample,
         write_vtk_aderdg,
@@ -247,44 +239,9 @@ def test_aderdg_output_writers(tmp_path):
     assert f"DIMENSIONS {cells} {cells} 1" in vtk1.read_text()
 
 
-def test_driver_with_tpu_layout_pallas_solver(tmp_path):
-    """The production driver runs the Pallas/SoA-P solver end to end."""
-    from exahype_tpu.parallel import TpuPatchGrid
-
-    cfg = KernelConfig(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=4
-    )
-    grid = TpuPatchGrid(config=cfg, grid_shape=(2, 2))
-    kb = build_rusanov_kernel(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=4
-    )
-    solver = GridSolver(
-        grid, kb, dx=0.1, backend="pallas", interpret=True, tile_patches=2
-    )
-    driver = TimeLoopDriver(
-        solver,
-        DriverConfig(
-            chunk_steps=2,
-            checkpoint_every=1,
-            checkpoint_dir=str(tmp_path / "ck"),
-            log_metrics=False,
-        ),
-    )
-    rng = np.random.default_rng(0)
-    aos = rng.uniform(0.1, 1.0, size=(4, 6, 6, 10))
-    aos[..., 0] += 1.0
-    aos[..., 3] += 5.0
-    aos[..., 4] += 5.0
-    Q0 = grid.from_aos(jnp.asarray(aos))
-    Q, t, stats = driver.run(Q0, n_steps=4, dt=1e-3)
-    assert stats["steps"] == 4
-    assert np.isfinite(np.asarray(Q)).all()
-    assert driver.ckpt.latest_step() is not None
-
-
 def test_driver_with_sharding(tmp_path):
     """TimeLoopDriver compiled with explicit shardings over the CPU mesh."""
-    from exahype_tpu.parallel import make_mesh, shard_state, state_sharding
+    from exahype_jax.parallel import make_mesh, shard_state, state_sharding
 
     solver = make_solver(gx=8, gy=2)
     mesh = make_mesh(8)
@@ -310,7 +267,7 @@ def test_driver_global_observables(caplog):
         solver, DriverConfig(chunk_steps=2, observables=obs)
     )
     Q0 = euler_state(solver.grid)
-    with caplog.at_level(logging.INFO, logger="exahype_tpu.driver"):
+    with caplog.at_level(logging.INFO, logger="exahype_jax.driver"):
         Q, t, stats = driver.run(Q0, n_steps=5, dt=1e-3)
     hist = stats["observables"]
     assert [h["step"] for h in hist] == [2, 4, 5]  # one entry per chunk
@@ -327,7 +284,7 @@ def test_driver_global_observables(caplog):
 def test_driver_global_observables_sharded_match():
     """Observables jitted under the mesh sharding equal the unsharded run's
     (the reduction lowers to a collective, not a host gather)."""
-    from exahype_tpu.parallel import make_mesh, shard_state, state_sharding
+    from exahype_jax.parallel import make_mesh, shard_state, state_sharding
 
     obs = {"total_rho": lambda Q: jnp.sum(Q[..., 0])}
     solver = make_solver(gx=8, gy=2)
@@ -359,8 +316,8 @@ def test_limited_driver_conservation_observables():
     decomposes into policy-engaged vs clean chunks."""
     import jax
 
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-    from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
 
     flux, eig = euler_physics(dim=2, n_real=4)
     solver = ADERDGSolver(
@@ -417,7 +374,7 @@ def test_limited_driver_conservation_observables():
 
 
 def test_code_printer_here_and_file(tmp_path, capsys):
-    from exahype_tpu.backends.cpp_backend import CPPPrinter
+    from exahype_jax.backends.cpp_backend import CPPPrinter
 
     kb = build_rusanov_kernel()
     printer = CPPPrinter(kb)
@@ -428,21 +385,18 @@ def test_code_printer_here_and_file(tmp_path, capsys):
 
 
 def test_system_integration_flow(tmp_path):
-    """End-to-end production flow: Pallas solver -> driver with checkpoints
+    """End-to-end production flow: grid solver -> driver with checkpoints
     -> resume -> VTK/NPZ output of the final state."""
-    from exahype_tpu.parallel import TpuPatchGrid
-    from exahype_tpu.utils.output import write_npz, write_vtk
+    from exahype_jax.utils.output import write_npz, write_vtk
 
     cfg = KernelConfig(
         dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=4
     )
-    grid = TpuPatchGrid(config=cfg, grid_shape=(2, 2))
+    grid = PatchGrid(config=cfg, grid_shape=(2, 2))
     kb = build_rusanov_kernel(
         dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=4
     )
-    solver = GridSolver(
-        grid, kb, dx=0.1, backend="pallas", interpret=True, tile_patches=2
-    )
+    solver = GridSolver(grid, kb, dx=0.1)
     driver = TimeLoopDriver(
         solver,
         DriverConfig(
@@ -457,7 +411,7 @@ def test_system_integration_flow(tmp_path):
     aos[..., 0] += 1.0
     aos[..., 3] += 5.0
     aos[..., 4] += 5.0
-    Q0 = grid.from_aos(jnp.asarray(aos))
+    Q0 = grid.from_batched(jnp.asarray(aos))
 
     Q, t, _ = driver.run(Q0, n_steps=4, dt=1e-3)
 
@@ -483,7 +437,7 @@ def test_driver_drives_aderdg_solver():
     including checkpoint + resume."""
     import jax.numpy as jnp
 
-    from exahype_tpu.models.aderdg import ADERDGSolver
+    from exahype_jax.models.aderdg import ADERDGSolver
 
     def flux(Q, axis, va):
         return (1.0 if axis == 0 else 0.5) * Q
@@ -519,12 +473,12 @@ def test_driver_drives_aderdg_solver():
         assert stats2["steps"] == 4
 
 
-def test_driver_drives_pallas_aderdg():
-    """TimeLoopDriver also accepts the fused-Pallas ADER-DG solver."""
+def test_driver_drives_fused_aderdg():
+    """TimeLoopDriver also accepts the fused-kernel ADER-DG solver."""
     import jax.numpy as jnp
 
-    from exahype_tpu.models.aderdg import ADERDGSolver
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
+    from exahype_jax.models.aderdg import ADERDGSolver
+    from exahype_jax.models.aderdg_triton import TritonADERDG
 
     def flux(Q, axis, va):
         return 0.5 * Q
@@ -537,7 +491,7 @@ def test_driver_drives_pallas_aderdg():
         dim=2, order=2, n_vars=1, grid_shape=(4, 128), flux_fn=flux,
         max_eigenvalue_fn=eig, dx=0.25,
     )
-    fused = PallasADERDG(solver, interpret=True, tile0=2)
+    fused = TritonADERDG(solver, interpret=True)
     rng = np.random.default_rng(0)
     Q0 = jnp.asarray(rng.random(solver.state_shape))
     ref = np.asarray(fused.run(Q0, 6, 1e-3))
@@ -552,7 +506,7 @@ def test_checkpoint_roundtrip_sharded_state():
     (restore is host-side; re-placement is the caller's job)."""
     import tempfile as _tf
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
     from jax.sharding import NamedSharding, PartitionSpec
 
     mesh = make_mesh(8)
@@ -590,8 +544,8 @@ def test_resume_uses_checkpointed_dt(tmp_path):
 
 
 def test_aderdg_cost_model():
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-    from exahype_tpu.utils.profiling import aderdg_step_cost
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.utils.roofline import aderdg_step_cost
 
     flux, eig = euler_physics(dim=3, n_real=5)
     s1 = ADERDGSolver(dim=3, order=3, n_vars=5, grid_shape=(8, 8, 8),
@@ -601,10 +555,10 @@ def test_aderdg_cost_model():
     c1, c2 = aderdg_step_cost(s1), aderdg_step_cost(s2)
     assert c2.flops == 2 * c1.flops  # linear in cells
     assert c2.bytes_total == 2 * c1.bytes_total
-    # Compute-bound on the VPU: AI above the ridge point
-    # vpu_peak / hbm_bw = 12.3e12 / 819e9 ~ 15 flops/byte.
-    assert c1.arithmetic_intensity > 15
-    assert c1.roofline_seconds() > 0
+    # Compute-bound on an H100: AI above the f32 ridge point
+    # 67e12 / 3.35e12 = 20 flops/byte.
+    assert c1.arithmetic_intensity > 20
+    assert c1.roofline_seconds(67e12, 3.35e12) > 0
     # ~0.3 MFLOP per cell for p3 Euler (sanity window).
     per_cell = c1.flops / 512
     assert 0.15e6 < per_cell < 0.6e6, per_cell
@@ -618,13 +572,13 @@ def test_adaptive_driver_checkpoint_resume(tmp_path, caplog):
 
     import jax.numpy as jnp
 
-    from exahype_tpu.models import hyperbolic
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
-    from exahype_tpu.parallel import GridSolver, PatchGrid
-    from exahype_tpu.parallel.driver import AdaptiveTimeLoopDriver, DriverConfig
-    from exahype_tpu.parallel.pool import DynamicPoolRefinement
-    from exahype_tpu.utils.config import KernelConfig
-    from exahype_tpu.utils.output import disassemble_global
+    from exahype_jax.models import hyperbolic
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.parallel import GridSolver, PatchGrid
+    from exahype_jax.parallel.driver import AdaptiveTimeLoopDriver, DriverConfig
+    from exahype_jax.parallel.pool import DynamicPoolRefinement
+    from exahype_jax.utils.config import KernelConfig
+    from exahype_jax.utils.output import disassemble_global
 
     gx = gy = 6
     cfg = KernelConfig(
@@ -658,7 +612,7 @@ def test_adaptive_driver_checkpoint_resume(tmp_path, caplog):
 
     # Uninterrupted reference (no checkpointing needed for the reference).
     ref_driver = make_driver(tmp_path / "ref")
-    with caplog.at_level(logging.INFO, logger="exahype_tpu.driver"):
+    with caplog.at_level(logging.INFO, logger="exahype_jax.driver"):
         c_ref, f_ref, info_ref = ref_driver.run(
             Q0, n_chunks=6, chunk_steps=5, dt=2e-3
         )
@@ -681,13 +635,13 @@ def test_adaptive_driver_global_observables(caplog):
 
     import jax.numpy as jnp
 
-    from exahype_tpu.models import hyperbolic
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
-    from exahype_tpu.parallel import GridSolver, PatchGrid
-    from exahype_tpu.parallel.driver import AdaptiveTimeLoopDriver, DriverConfig
-    from exahype_tpu.parallel.pool import DynamicPoolRefinement
-    from exahype_tpu.utils.config import KernelConfig
-    from exahype_tpu.utils.output import disassemble_global
+    from exahype_jax.models import hyperbolic
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.parallel import GridSolver, PatchGrid
+    from exahype_jax.parallel.driver import AdaptiveTimeLoopDriver, DriverConfig
+    from exahype_jax.parallel.pool import DynamicPoolRefinement
+    from exahype_jax.utils.config import KernelConfig
+    from exahype_jax.utils.output import disassemble_global
 
     gx = gy = 6
     cfg = KernelConfig(
@@ -716,7 +670,7 @@ def test_adaptive_driver_global_observables(caplog):
             observables={"max_u": lambda c, f, tb: jnp.max(c)},
         ),
     )
-    with caplog.at_level(logging.INFO, logger="exahype_tpu.driver"):
+    with caplog.at_level(logging.INFO, logger="exahype_jax.driver"):
         coarse, fine, info = driver.run(Q0, n_chunks=4, chunk_steps=5, dt=2e-3)
     hist = info["observables"]
     assert [h["chunk"] for h in hist] == [1, 2, 3, 4]
@@ -732,13 +686,13 @@ def test_adaptive_driver_overlap_regrid_matches_when_stationary():
     sequential driver when the criterion pattern is stationary."""
     import jax.numpy as jnp
 
-    from exahype_tpu.models import hyperbolic
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
-    from exahype_tpu.parallel import GridSolver, PatchGrid
-    from exahype_tpu.parallel.driver import AdaptiveTimeLoopDriver, DriverConfig
-    from exahype_tpu.parallel.pool import DynamicPoolRefinement
-    from exahype_tpu.utils.config import KernelConfig
-    from exahype_tpu.utils.output import disassemble_global
+    from exahype_jax.models import hyperbolic
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.parallel import GridSolver, PatchGrid
+    from exahype_jax.parallel.driver import AdaptiveTimeLoopDriver, DriverConfig
+    from exahype_jax.parallel.pool import DynamicPoolRefinement
+    from exahype_jax.utils.config import KernelConfig
+    from exahype_jax.utils.output import disassemble_global
 
     gx = gy = 6
     cfg = KernelConfig(
@@ -782,10 +736,10 @@ def test_export_step_new_families_roundtrip():
     import jax.numpy as jnp
     import numpy as np
 
-    from exahype_tpu.models import euler, grmhd_cfc
-    from exahype_tpu.models import navier_stokes as ns
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.utils.serialize import export_step, load_step
+    from exahype_jax.models import euler, grmhd_cfc
+    from exahype_jax.models import navier_stokes as ns
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.utils.serialize import export_step, load_step
 
     f, e, vf, ve = ns.navier_stokes(dim=2, mu=0.02)
     solver = ADERDGSolver(
@@ -844,9 +798,9 @@ def test_export_step_roundtrip(tmp_path):
     import jax.numpy as jnp
     import numpy as np
 
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models import hyperbolic
-    from exahype_tpu.utils.serialize import export_step, load_step, save_step
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import hyperbolic
+    from exahype_jax.utils.serialize import export_step, load_step, save_step
 
     flux, eig = hyperbolic.advection((1.0, 0.4))
     solver = ADERDGSolver(
@@ -867,9 +821,9 @@ def test_export_step_roundtrip(tmp_path):
     np.testing.assert_allclose(served, live, rtol=0, atol=1e-13)
 
     # File round trip on the FV grid solver.
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
-    from exahype_tpu.parallel import GridSolver, PatchGrid
-    from exahype_tpu.utils.config import KernelConfig
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.parallel import GridSolver, PatchGrid
+    from exahype_jax.utils.config import KernelConfig
 
     cfg = KernelConfig(
         dim=2, patch_size=4, halo_size=1, n_real=1, n_aux=0, n_patches=4
@@ -890,25 +844,6 @@ def test_export_step_roundtrip(tmp_path):
         rtol=0, atol=1e-13,
     )
 
-    # The fused Pallas flagship exports for the TPU platform from this CPU
-    # host (the Mosaic kernel serializes as a StableHLO custom call);
-    # execution on a real chip is verified out-of-band (module docstring).
-    from exahype_tpu.models.aderdg import euler_physics
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    eflux, eeig = euler_physics(dim=3, n_real=5)
-    esolver = ADERDGSolver(
-        dim=3, order=2, n_vars=5, grid_shape=(4, 4, 8),
-        flux_fn=eflux, max_eigenvalue_fn=eeig, dx=0.25,
-    )
-    fused = PallasADERDG(esolver, tile0=1)
-    blob_tpu = export_step(
-        fused.step, esolver.state_shape, dtype=jnp.float32, platforms=("tpu",)
-    )
-    from jax import export as jax_export
-
-    assert jax_export.deserialize(blob_tpu).platforms == ("tpu",)
-
 
 def test_export_limited_production_step(tmp_path):
     """The PRODUCTION configuration serves too: the row-gathered limited
@@ -916,9 +851,9 @@ def test_export_limited_production_step(tmp_path):
     StableHLO artifact and the deserialized program matches the live jit."""
     import jax.numpy as jnp
 
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-    from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
-    from exahype_tpu.utils.serialize import export_step, load_step, save_step
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
+    from exahype_jax.utils.serialize import export_step, load_step, save_step
 
     flux, eig = euler_physics(dim=2, n_real=4)
     solver = ADERDGSolver(
@@ -953,7 +888,7 @@ def test_export_limited_production_step(tmp_path):
 def test_write_seismograms(tmp_path):
     import numpy as np
 
-    from exahype_tpu.utils.output import write_seismograms
+    from exahype_jax.utils.output import write_seismograms
 
     T, R, V = 7, 3, 2
     vals = np.arange(T * R * V, dtype=float).reshape(T, R, V)

@@ -5,8 +5,8 @@ generated kernel (``Unit test/test.cpp:11-103``): ten loop nests with exactly
 these ranges for the dim=2, patch=4, halo=1, n_real=5, n_aux=5 configuration.
 """
 
-from exahype_tpu.frontend.statements import StatementKind
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.frontend.statements import StatementKind
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 # (patch, i, j, var) half-open ranges per loop statement, in order, matching
 # Unit test/test.cpp loop nests 1..10.

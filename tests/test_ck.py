@@ -3,8 +3,8 @@
 The reference family's kernel generator ships a LINEAR aderdg kernel
 class alongside the nonlinear Picard one (ExaHyPE2 specification files
 select ``linear``/``nonlinear`` per solver; ExaSeis runs on the linear
-kernels).  ``ADERDGSolver(predictor_mode="ck")`` is the TPU-native
-counterpart: a time-Taylor recursion of N spatial-operator applications
+kernels).  ``ADERDGSolver(predictor_mode="ck")`` is the counterpart
+here: a time-Taylor recursion of N spatial-operator applications
 on the spatial nodal array — no space-time array exists.  These tests
 pin
 
@@ -25,8 +25,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.utils.errors import SemanticError
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.utils.errors import SemanticError
 
 
 def _coords(solver):
@@ -109,7 +109,7 @@ def test_ck_vs_picard_one_step_superconvergent_difference():
 
 def test_ck_elastic_plane_wave():
     """Exact P-wave through the CK predictor at Picard-level accuracy."""
-    from exahype_tpu.models.elastic import elastic, plane_p_wave
+    from exahype_jax.models.elastic import elastic, plane_p_wave
 
     rho, lam, mu = 1.0, 2.0, 1.0
     flux, eig = elastic(rho=rho, lam=lam, mu=mu)
@@ -141,7 +141,7 @@ def test_ck_material_slots_match_homogeneous():
     homogeneous CK solver on the evolved slots to rounding — pins the
     material-injection plumbing (inject into every L-operand, zero every
     L-output row)."""
-    from exahype_tpu.models.elastic import (
+    from exahype_jax.models.elastic import (
         N_VARS_HET,
         elastic,
         elastic_heterogeneous,
@@ -214,7 +214,7 @@ def test_ck_free_surface_walls_compose():
     """CK flows through the wall face stage (reflective free-surface box):
     parity with the Picard solver at the predictor-difference level and
     exact horizontal-momentum conservation."""
-    from exahype_tpu.models.elastic import (
+    from exahype_jax.models.elastic import (
         elastic,
         elastic_free_surface,
         plane_p_wave,
@@ -283,82 +283,3 @@ def test_ck_guards():
         ADERDGSolver(predictor_mode="ck", ck_material_slots=(7,), **kw)
 
 
-def test_ck_fused_pallas_parity():
-    """The fused Pallas kernel's CK branch (interpret mode) matches the
-    base XLA CK step — the seismic speed path is the same scheme."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.models.elastic import elastic3d, plane_p_wave_3d
-
-    flux, eig = elastic3d()
-    cells = 4
-    solver = ADERDGSolver(
-        dim=3, order=2, n_vars=9, grid_shape=(cells,) * 3,
-        flux_fn=wrap_var_last(flux), max_eigenvalue_fn=wrap_var_last(eig),
-        dx=1.0 / cells, predictor_mode="ck",
-    )
-    fused = PallasADERDG(solver, interpret=True)
-    coords = solver.nodes_meshgrid()
-    no_var = tuple(
-        s for e, s in enumerate(solver.state_shape)
-        if e != solver.var_axis
-    )
-    X = np.broadcast_to(
-        np.squeeze(np.asarray(coords[0]), solver.var_axis), no_var
-    )
-    u = jnp.asarray(
-        np.moveaxis(plane_p_wave_3d(X, 0.0), -1, solver.var_axis)
-    )
-    dt = 1e-3
-    ref = np.asarray(solver.step(u, dt))
-    got = np.asarray(fused.step(u, dt))
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-15)
-
-
-def test_ck_fused_pallas_materials_parity():
-    """Fused CK with frozen material injection (heterogeneous 3-D
-    elasticity): interpret-mode kernel == base XLA CK, materials bitwise
-    frozen."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.models.elastic import (
-        N_VARS_3D_HET,
-        elastic3d_heterogeneous,
-        plane_p_wave_3d,
-    )
-
-    flux, eig = elastic3d_heterogeneous()
-    cells = 4
-    solver = ADERDGSolver(
-        dim=3, order=2, n_vars=N_VARS_3D_HET, grid_shape=(cells,) * 3,
-        flux_fn=wrap_var_last(flux), max_eigenvalue_fn=wrap_var_last(eig),
-        dx=1.0 / cells, predictor_mode="ck",
-        ck_material_slots=(9, 10, 11),
-        dissipation_mask=(1,) * 9 + (0, 0, 0),
-    )
-    fused = PallasADERDG(solver, interpret=True)
-    coords = solver.nodes_meshgrid()
-    no_var = tuple(
-        s for e, s in enumerate(solver.state_shape)
-        if e != solver.var_axis
-    )
-    X = np.broadcast_to(
-        np.squeeze(np.asarray(coords[0]), solver.var_axis), no_var
-    )
-    Z = np.broadcast_to(
-        np.squeeze(np.asarray(coords[2]), solver.var_axis), no_var
-    )
-    wave = np.moveaxis(plane_p_wave_3d(X, 0.0), -1, solver.var_axis)
-    mats = np.stack(
-        [
-            np.where(Z < 0.5, 1.0, 1.5),
-            np.where(Z < 0.5, 2.0, 4.0),
-            np.where(Z < 0.5, 1.0, 2.0),
-        ],
-        axis=solver.var_axis,
-    )
-    u = jnp.asarray(np.concatenate([wave, mats], axis=solver.var_axis))
-    dt = 1e-3
-    ref = np.asarray(solver.step(u, dt))
-    got = np.asarray(fused.step(u, dt))
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-15)
-    sel = (slice(None),) * solver.var_axis + (slice(9, 12),)
-    np.testing.assert_array_equal(got[sel], np.asarray(u)[sel])

@@ -10,12 +10,12 @@ the local toolchain instead of a SLURM job against a Peano checkout.
 import numpy as np
 import pytest
 
-from exahype_tpu.backends.cpp_backend import CPPPrinter
-from exahype_tpu.backends.cpp_runtime import compile_kernel, euler_sources
-from exahype_tpu.backends.jax_backend import JAXPrinter
-from exahype_tpu.backends.numpy_oracle import run_oracle
-from exahype_tpu.models import euler_numpy
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.backends.cpp_backend import CPPPrinter
+from exahype_jax.backends.cpp_runtime import compile_kernel, euler_sources
+from exahype_jax.backends.jax_backend import JAXPrinter
+from exahype_jax.backends.numpy_oracle import run_oracle
+from exahype_jax.models import euler_numpy
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 
 def sine_init(shape):

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.models.curvilinear import (
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.models.curvilinear import (
     curvilinear_dissipation_mask,
     curvilinear_material_slots,
     curvilinear_physics,
@@ -174,7 +174,7 @@ def test_elastic_wave_on_deformed_mesh():
     """The seismic case: an exact elastic P-wave (physical coordinates)
     propagated through the deformed mesh — accuracy at the Cartesian
     test's level, CK and Picard agreeing at the superconvergent level."""
-    from exahype_tpu.models.elastic import elastic, plane_p_wave
+    from exahype_jax.models.elastic import elastic, plane_p_wave
 
     flux, eig = elastic()
     cflux, ceig = curvilinear_physics(flux, eig, dim=2, n_wave=5)
@@ -278,7 +278,7 @@ def test_curl_metric_in_cell_identity_exact(dim):
     """The core Kopriva property: Σ_k D_k(J a^k_i) = 0 to ROUNDING per
     cell (commuting tensor-product collocation derivatives), for any
     smooth mapping — where the analytic metrics leave an O(h^N) defect."""
-    from exahype_tpu.models.aderdg import _apply
+    from exahype_jax.models.aderdg import _apply
 
     flux, eig = _advection_physics((1.0, 0.5, 0.25)[:dim])
     cflux, ceig = curvilinear_physics(flux, eig, dim=dim, n_wave=1)
@@ -377,7 +377,7 @@ def test_euler_free_stream_over_topography_exact():
     uniform moving state over a terrain-deformed mesh — free stream to
     machine precision on curl metrics + Lobatto (the nonlinear flux of a
     constant state is constant, so the same metric identity applies)."""
-    from exahype_tpu.models import euler
+    from exahype_jax.models import euler
 
     dim, n_wave = 3, 5
     flux = euler.flux_v_fn(dim=dim, n_real=n_wave)
@@ -418,7 +418,7 @@ def test_curvilinear_sharded_parity():
     import jax
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
 
     flux, eig = _advection_physics((1.0, 0.5))
     cflux, ceig = curvilinear_physics(flux, eig, dim=2, n_wave=1)

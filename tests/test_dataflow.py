@@ -12,15 +12,15 @@ import numpy as np
 import pytest
 import sympy
 
-from exahype_tpu.frontend.dataflow import (
+from exahype_jax.frontend.dataflow import (
     max_input_reach,
     transitive_input_reach,
     validate_dataflow,
 )
-from exahype_tpu.frontend.kernel_builder import KernelBuilder
-from exahype_tpu.models.muscl import build_muscl_kernel
-from exahype_tpu.models.rusanov import build_rusanov_kernel
-from exahype_tpu.utils.errors import LoweringError, SemanticError
+from exahype_jax.frontend.kernel_builder import KernelBuilder
+from exahype_jax.models.muscl import build_muscl_kernel
+from exahype_jax.models.rusanov import build_rusanov_kernel
+from exahype_jax.utils.errors import LoweringError, SemanticError
 
 
 def test_rusanov_reach_is_one():
@@ -42,7 +42,7 @@ def test_reflux_probe_rejects_reconstruction_specs():
     """The advisor's scenario: MUSCL satisfies the Flux/maxEigenvalue probe
     but its face fluxes use limited reconstruction — refluxing must
     auto-disable, not silently apply an inconsistent correction."""
-    from exahype_tpu.parallel.refine import reflux_physics
+    from exahype_jax.parallel.refine import reflux_physics
 
     first_order = build_rusanov_kernel(dim=2, patch_size=4, halo_size=1,
                                        n_real=4, n_aux=0, n_patches=4)
@@ -54,10 +54,10 @@ def test_reflux_probe_rejects_reconstruction_specs():
 
 
 def test_pool_autodisables_reflux_for_muscl():
-    from exahype_tpu.parallel.grid import PatchGrid
-    from exahype_tpu.parallel.pool import PatchPoolRefinement
-    from exahype_tpu.parallel.solver import GridSolver
-    from exahype_tpu.utils.config import KernelConfig
+    from exahype_jax.parallel.grid import PatchGrid
+    from exahype_jax.parallel.pool import PatchPoolRefinement
+    from exahype_jax.parallel.solver import GridSolver
+    from exahype_jax.utils.config import KernelConfig
 
     cfg = KernelConfig(dim=2, patch_size=4, halo_size=2, n_real=4, n_aux=0,
                        n_patches=9)
@@ -103,7 +103,7 @@ def test_validate_dataflow_rejects_chained_reach_beyond_halo():
 
 
 def test_validate_dataflow_runs_in_jax_backend():
-    from exahype_tpu.backends.jax_backend import JAXPrinter
+    from exahype_jax.backends.jax_backend import JAXPrinter
 
     with pytest.raises(LoweringError, match="chained stencil reach"):
         JAXPrinter(_chained_kernel(halo_size=1)).build()
@@ -116,9 +116,9 @@ def test_golden_policy_skips_validation():
 
 
 def test_native_driver_rejects_config_mismatch():
-    from exahype_tpu.backends.cpp_runtime import NativeGridDriver
-    from exahype_tpu.parallel.grid import PatchGrid
-    from exahype_tpu.utils.config import KernelConfig
+    from exahype_jax.backends.cpp_runtime import NativeGridDriver
+    from exahype_jax.parallel.grid import PatchGrid
+    from exahype_jax.utils.config import KernelConfig
 
     cfg = KernelConfig(dim=2, patch_size=4, halo_size=1, n_real=4, n_aux=0,
                        n_patches=4)

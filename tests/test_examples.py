@@ -23,7 +23,7 @@ def test_batched_stateless(tmp_path, monkeypatch, capsys):
     code = (tmp_path / "test.cpp").read_text()
     assert 'extern "C" void time_step(double* Q, double dt)' in code
     # The emitted C++ must actually compile against the bundled physics.
-    from exahype_tpu.backends.cpp_runtime import NATIVE_DIR
+    from exahype_jax.backends.cpp_runtime import NATIVE_DIR
 
     proc = subprocess.run(
         [
@@ -39,7 +39,7 @@ def test_batched_stateless(tmp_path, monkeypatch, capsys):
 def test_exahype_ir_demo(tmp_path, monkeypatch):
     run_example("exahype_ir_demo.py", tmp_path, monkeypatch)
     text = (tmp_path / "demo.eir").read_text()
-    from exahype_tpu.ir import parse_kernel
+    from exahype_jax.ir import parse_kernel
 
     kernel = parse_kernel(text)
     assert len(kernel.stencils) == 2
@@ -147,6 +147,7 @@ def test_raw_sympy_ccode(tmp_path, monkeypatch, capsys):
 
 
 def test_limited_blast_walls(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", ["limited_blast_walls.py", "--cpu"])
     run_example("limited_blast_walls.py", tmp_path, monkeypatch)
     out = capsys.readouterr().out
     assert "admissible + conservative" in out

@@ -9,7 +9,7 @@ import copy
 import pytest
 import sympy
 
-from exahype_tpu.ir import (
+from exahype_jax.ir import (
     DType,
     FluxBuilder,
     IRBuilder,
@@ -24,10 +24,10 @@ from exahype_tpu.ir import (
     print_kernel,
     spec_to_loops,
 )
-from exahype_tpu.ir.loop_ir import Loop
-from exahype_tpu.models.rusanov import build_rusanov_kernel
-from exahype_tpu.tools.exahype_opt import run as opt_run
-from exahype_tpu.utils.errors import VerifyError
+from exahype_jax.ir.loop_ir import Loop
+from exahype_jax.models.rusanov import build_rusanov_kernel
+from exahype_jax.tools.exahype_opt import run as opt_run
+from exahype_jax.utils.errors import VerifyError
 
 
 def demo_kernel() -> Kernel:
@@ -168,7 +168,7 @@ def test_kernel_ir_executes_through_loop_interpreter():
     """Path B end-to-end: structural Kernel IR -> Loop IR -> execution."""
     import numpy as np
 
-    from exahype_tpu.ir.interp import run_loop_function
+    from exahype_jax.ir.interp import run_loop_function
 
     patch = PatchBuilder.build("Q", [6, 6])
     flux = FluxBuilder.build("flx", "Double", [6, 6], halo=[1, 0])
@@ -198,9 +198,9 @@ def test_spec_to_loops_interpreter_matches_oracle():
     without pointer-ABI calls)."""
     import numpy as np
 
-    from exahype_tpu import KernelBuilder
-    from exahype_tpu.backends.numpy_oracle import run_oracle
-    from exahype_tpu.ir.interp import run_loop_function
+    from exahype_jax import KernelBuilder
+    from exahype_jax.backends.numpy_oracle import run_oracle
+    from exahype_jax.ir.interp import run_loop_function
 
     kb = KernelBuilder(dim=2, patch_size=4, halo_size=1, n_real=2, n_aux=0)
     Q = kb.item("Q")
@@ -237,8 +237,8 @@ def test_mlir_generic_export(tmp_path):
     """Path-B interop: Kernel IR renders in MLIR generic-op syntax (any MLIR
     toolchain parses it with --allow-unregistered-dialect), covering the
     reference's registered-dialect interop (dialects/exahype.py:585-604)."""
-    from exahype_tpu.ir.kernel_ir import print_kernel, print_mlir_generic
-    from exahype_tpu.tools.exahype_opt import run
+    from exahype_jax.ir.kernel_ir import print_kernel, print_mlir_generic
+    from exahype_jax.tools.exahype_opt import run
 
     k = demo_kernel()
     text = print_mlir_generic(k)

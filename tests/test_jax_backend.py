@@ -10,10 +10,10 @@ interpreter, then element-wise compared.  Tolerance target per BASELINE.md:
 import numpy as np
 import pytest
 
-from exahype_tpu.backends.jax_backend import JAXPrinter
-from exahype_tpu.backends.numpy_oracle import run_oracle
-from exahype_tpu.models import euler_numpy
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.backends.jax_backend import JAXPrinter
+from exahype_jax.backends.numpy_oracle import run_oracle
+from exahype_jax.models import euler_numpy
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 
 def sine_init(shape):
@@ -119,7 +119,7 @@ def test_parent_consts_via_params():
     JAX backend (arrays for parented items, scalars for parented consts)."""
     import sympy
 
-    from exahype_tpu import KernelBuilder
+    from exahype_jax import KernelBuilder
 
     kb = KernelBuilder(dim=2, patch_size=4, halo_size=1, n_real=2, n_aux=0)
     Data = kb.item("patchData", in_type="::exahype2::CellData&")

@@ -7,9 +7,9 @@ SURVEY.md §2/§3.1 and the golden generated kernel ``Unit test/test.cpp``.
 import pytest
 import sympy
 
-from exahype_tpu import KernelBuilder, SemanticError
-from exahype_tpu.frontend.statements import StatementKind
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax import KernelBuilder, SemanticError
+from exahype_jax.frontend.statements import StatementKind
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 
 def test_viability():
@@ -157,7 +157,7 @@ def test_index_accepts_string_input():
 def test_with_n_patches_clone_is_independent():
     """Mutating the per-shard clone (or the parent) must not leak into the
     other: the statement lists and registries are copied, not aliased."""
-    from exahype_tpu.models import build_rusanov_kernel
+    from exahype_jax.models import build_rusanov_kernel
 
     kb = build_rusanov_kernel(dim=2, patch_size=4, halo_size=1, n_real=5,
                               n_aux=0, n_patches=8)

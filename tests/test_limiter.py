@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
 from tests.test_aderdg import euler_density_wave_solver, euler_density_wave_state
 
 
@@ -118,7 +118,7 @@ def test_subcell_fallback_conserves_and_resolves():
 def test_subcell_vs_means_fallback_accuracy():
     """On a smooth-but-flagged state the subcell fallback must be closer to
     the true solution than the cell-mean fallback."""
-    from exahype_tpu.models.aderdg import euler_physics
+    from exahype_jax.models.aderdg import euler_physics
 
     solver, _ = make_limited(cells=8, order=3)
     lim_sub = LimitedADERDG(
@@ -142,7 +142,7 @@ def test_subcell_vs_means_fallback_accuracy():
 
 
 def test_limiter_3d_smoke():
-    from exahype_tpu.models.aderdg import euler_physics
+    from exahype_jax.models.aderdg import euler_physics
 
     flux, eig = euler_physics(dim=3, n_real=5)
     solver = ADERDGSolver(
@@ -169,7 +169,7 @@ def test_limited_step_sharded_matches_single_device():
     import jax
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
 
     solver, limited = make_limited(cells=8, order=2)
     Q0 = sod_like_state(solver)
@@ -205,8 +205,8 @@ def test_limiter_accepts_source_ncp_anisotropic():
     limiter; the scalar-dx path is bitwise preserved."""
     import jax.numpy as jnp
 
-    from exahype_tpu.models.aderdg import ADERDGSolver
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models.aderdg import ADERDGSolver
+    from exahype_jax.models.limiter import LimitedADERDG
 
     def flux(Q, axis, va):
         return Q
@@ -235,8 +235,8 @@ def test_limiter_accepts_source_ncp_anisotropic():
 def test_limited_solver_with_source_decays():
     """The limited step applies the source in BOTH branches: a stiff-ish
     decay source shrinks the state even where cells are troubled."""
-    from exahype_tpu.models.aderdg import ADERDGSolver
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models.aderdg import ADERDGSolver
+    from exahype_jax.models.limiter import LimitedADERDG
 
     def flux(Q, axis, va):
         return (1.0 if axis == 0 else 0.5) * Q
@@ -273,8 +273,8 @@ def test_limited_swe_dam_break_conserves_water():
     """SWE dam break over bathymetry through the limiter: the FV fallback's
     path-conservative fluctuations keep the run finite, the bathymetry
     frozen, and the (conservative) water column exactly conserved."""
-    from exahype_tpu.models.limiter import LimitedADERDG
-    from exahype_tpu.models.swe import lake_at_rest, make_swe_solver
+    from exahype_jax.models.limiter import LimitedADERDG
+    from exahype_jax.models.swe import lake_at_rest, make_swe_solver
 
     solver = make_swe_solver(dim=2, order=2, grid_shape=(16, 4), dx=1.0 / 16)
     limited = LimitedADERDG(solver=solver)
@@ -303,7 +303,7 @@ def test_limited_swe_dam_break_conserves_water():
 
 
 def make_limited_reflective(cells=8, order=2, **kw):
-    from exahype_tpu.models.aderdg import euler_reflect, euler_reflect_flux
+    from exahype_jax.models.aderdg import euler_reflect, euler_reflect_flux
 
     flux, eig = euler_physics(dim=2, n_real=4)
     solver = ADERDGSolver(
@@ -421,12 +421,12 @@ def test_limiter_reflective_mixed_interface_conserves():
 
 def test_limited_step_with_pallas_accelerator_matches():
     """The production config — limited ADER-DG with the fused Pallas
-    predictor supplying candidate + face fluxes — must reproduce the plain
+    cell stage supplying candidate + face fluxes — must reproduce the plain
     limited step (same troubled cells, same fallback, same matching)."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
+    from exahype_jax.models.aderdg_triton import TritonADERDG
 
     solver, limited = make_limited(cells=8, order=2)
-    accel = PallasADERDG(solver, interpret=True, tile0=2)
+    accel = TritonADERDG(solver, interpret=True)
     fast = LimitedADERDG(
         solver, admissible=euler_admissible(dim=2), accelerator=accel
     )
@@ -446,13 +446,55 @@ def test_limited_step_with_pallas_accelerator_matches():
 
 
 def test_limiter_accelerator_solver_mismatch_rejected():
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
+    from exahype_jax.models.aderdg_triton import TritonADERDG
 
     solver, _ = make_limited(cells=8, order=2)
     other, _ = make_limited(cells=8, order=2)
-    accel = PallasADERDG(other, interpret=True, tile0=2)
+    accel = TritonADERDG(other, interpret=True)
     with pytest.raises(ValueError):
         LimitedADERDG(solver, accelerator=accel)
+
+
+def test_limited_step_sharded_accelerator_matches():
+    """The multi-device limited configuration: the fused cell stage under
+    shard_map (ShardedADERDG accelerator) while detection, fallback and
+    matching GSPMD-partition around it — matches the single-device
+    accelerated limited step to 1e-12."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from exahype_jax.models.aderdg_triton import TritonADERDG
+    from exahype_jax.parallel import make_mesh
+    from exahype_jax.parallel.shard import ShardedADERDG
+
+    solver, _ = make_limited(cells=8, order=2)
+    ref_lim = LimitedADERDG(
+        solver, admissible=euler_admissible(dim=2),
+        accelerator=TritonADERDG(solver, interpret=True),
+    )
+    Q0 = sod_like_state(solver)
+    dt = 2e-3
+    ref = np.asarray(jax.jit(ref_lim.step)(Q0, dt))
+
+    mesh = make_mesh(8)
+    accel = ShardedADERDG(
+        solver, mesh,
+        cell_stage=lambda s: TritonADERDG(s, interpret=True).cell_stage,
+    )
+    lim = LimitedADERDG(
+        solver, admissible=euler_admissible(dim=2), accelerator=accel
+    )
+    ndim = len(solver.state_shape)
+    spec = [None] * ndim
+    spec[solver.grid_axis(0)] = "patches"
+    sharding = NamedSharding(mesh, PartitionSpec(*spec))
+    Qs = jax.device_put(Q0, sharding)
+    stepped = jax.jit(lim.step, in_shardings=(sharding, None), out_shardings=sharding)
+    got = np.asarray(stepped(Qs, dt))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+
+    hlo = stepped.lower(Qs, dt).compile().as_text()
+    assert "collective-permute" in hlo
 
 
 def test_subcell_fallback_second_order_ncp_convergence():
@@ -521,50 +563,11 @@ def test_subcell_fallback_second_order_ncp_convergence():
     assert rate_m > 1.4, f"minmod rate {rate_m:.2f}"
 
 
-def test_limited_step_sharded_accelerator_matches():
-    """The PRODUCTION multichip config: limited ADER-DG with the fused
-    predictor under shard_map (ShardedPallasADERDG accelerator) while
-    detection/fallback/matching GSPMD-partition around it — matches the
-    single-device accelerated limited step to 1e-12."""
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec
-
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.parallel import make_mesh
-    from exahype_tpu.parallel.shard import ShardedPallasADERDG
-
-    solver, _ = make_limited(cells=8, order=2)
-    ref_lim = LimitedADERDG(
-        solver, admissible=euler_admissible(dim=2),
-        accelerator=PallasADERDG(solver, interpret=True, tile0=2),
-    )
-    Q0 = sod_like_state(solver)
-    dt = 2e-3
-    ref = np.asarray(jax.jit(ref_lim.step)(Q0, dt))
-
-    mesh = make_mesh(8)
-    accel = ShardedPallasADERDG(solver, mesh, interpret=True, tile0=1)
-    lim = LimitedADERDG(
-        solver, admissible=euler_admissible(dim=2), accelerator=accel
-    )
-    ndim = len(solver.state_shape)
-    spec = [None] * ndim
-    spec[solver.grid_axis(0)] = "patches"
-    sharding = NamedSharding(mesh, PartitionSpec(*spec))
-    Qs = jax.device_put(Q0, sharding)
-    stepped = jax.jit(lim.step, in_shardings=(sharding, None), out_shardings=sharding)
-    got = np.asarray(stepped(Qs, dt))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
-
-    hlo = stepped.lower(Qs, dt).compile().as_text()
-    assert "collective-permute" in hlo
-
-
 def test_limiter_high_order_p5():
     """The MOOD limiter is order-generic: at p5 (11^2-subcell fallback)
     a shock run stays admissible with exact conservation, and the
     row-gathered production path composes too."""
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
 
     flux, eig = euler_physics(dim=2, n_real=4)
     solver = ADERDGSolver(

@@ -19,14 +19,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models.aderdg import (
+from exahype_jax.models.aderdg import (
     ADERDGSolver,
     euler_physics,
     euler_reflect,
     euler_reflect_flux,
     wrap_var_last,
 )
-from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
 
 
 def make_solver(cells=12, order=3, **kw):
@@ -192,19 +192,14 @@ def test_gathered_rejects_unsupported_configs():
 
 def test_gathered_with_bfo_accelerator_matches():
     """The full production stack: gathered fallback + the fused Pallas
-    predictor in its fastest (boundary_faces_only) configuration, whose
-    flux contract is now compatible with the limiter."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
+    cell stage, whose face-flux contract composes with the limiter."""
+    from exahype_jax.models.aderdg_triton import TritonADERDG
 
     solver = make_solver(cells=8, order=2)
     plain = LimitedADERDG(
         solver, admissible=euler_admissible(dim=2), troubled_capacity=64
     )
-    accel = PallasADERDG(
-        solver, interpret=True, tile0=2, boundary_faces_only=True
-    )
-    accel.build()
-    assert accel.boundary_faces_only
+    accel = TritonADERDG(solver, interpret=True)
     fast = LimitedADERDG(
         solver, admissible=euler_admissible(dim=2), troubled_capacity=64,
         accelerator=accel,
@@ -216,7 +211,53 @@ def test_gathered_with_bfo_accelerator_matches():
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-11)
 
 
-# ------------------------- row-granular gathering (the TPU production path)
+def test_row_gathered_with_sharded_accelerator_matches():
+    """The complete multi-device stack: fused cell stage under shard_map
+    (ppermute edge exchange) + row-gathered fallback + matching, all
+    GSPMD-partitioned around the shard_map region — matches the
+    single-device accelerated gathered step to 1e-12."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from exahype_jax.models.aderdg_triton import TritonADERDG
+    from exahype_jax.parallel import make_mesh
+    from exahype_jax.parallel.shard import ShardedADERDG
+
+    solver = make_solver(cells=8, order=2)
+    ref_lim = LimitedADERDG(
+        solver, admissible=euler_admissible(dim=2),
+        troubled_capacity=8, troubled_granularity="row",
+        accelerator=TritonADERDG(solver, interpret=True),
+    )
+    Q0 = sod_like_state(solver)
+    dt = 2e-3
+    ref = np.asarray(jax.jit(ref_lim.step)(Q0, dt))
+
+    mesh = make_mesh(8)
+    accel = ShardedADERDG(
+        solver, mesh,
+        cell_stage=lambda s: TritonADERDG(s, interpret=True).cell_stage,
+    )
+    lim = LimitedADERDG(
+        solver, admissible=euler_admissible(dim=2),
+        troubled_capacity=8, troubled_granularity="row",
+        accelerator=accel,
+    )
+    ndim = len(solver.state_shape)
+    spec = [None] * ndim
+    spec[solver.grid_axis(0)] = "patches"
+    sharding = NamedSharding(mesh, PartitionSpec(*spec))
+    Qs = jax.device_put(Q0, sharding)
+    stepped = jax.jit(
+        lim.step, in_shardings=(sharding, None), out_shardings=sharding
+    )
+    got = np.asarray(stepped(Qs, dt))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    hlo = stepped.lower(Qs, dt).compile().as_text()
+    assert "collective-permute" in hlo
+
+
+# -------------------------------- row-granular gathering (the production path)
 
 
 def test_row_gathered_all_troubled_matches_whole_grid():
@@ -317,7 +358,7 @@ def test_row_gathered_3d_matches_cell_gathered_quality():
         dim=3, order=2, n_vars=5, grid_shape=(6, 4, 8),
         flux_fn=flux, max_eigenvalue_fn=eig, dx=1.0 / 6,
     )
-    from exahype_tpu.models.limiter import euler_admissible as adm3
+    from exahype_jax.models.limiter import euler_admissible as adm3
     lim = LimitedADERDG(
         solver, admissible=adm3(dim=3), troubled_capacity=24,
         troubled_granularity="row",
@@ -343,7 +384,7 @@ def test_row_gathered_sharded_matches_single_device():
     import jax
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
 
     solver = make_solver(cells=8, order=2)
     lim = LimitedADERDG(
@@ -407,134 +448,6 @@ def test_gathered_source_ncp_mask_anisotropic_parity(granularity):
     np.testing.assert_allclose(b, a, rtol=0, atol=1e-14)
 
 
-def test_row_gathered_with_sharded_accelerator_matches():
-    """The COMPLETE production multichip stack: fused predictor under
-    shard_map (ppermute edge exchange) + row-gathered fallback + matching,
-    all GSPMD-partitioned around the shard_map region — matches the
-    single-device accelerated gathered step to 1e-12."""
-    import jax
-    from jax.sharding import NamedSharding, PartitionSpec
-
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.parallel import make_mesh
-    from exahype_tpu.parallel.shard import ShardedPallasADERDG
-
-    solver = make_solver(cells=8, order=2)
-    ref_lim = LimitedADERDG(
-        solver, admissible=euler_admissible(dim=2),
-        troubled_capacity=8, troubled_granularity="row",
-        accelerator=PallasADERDG(solver, interpret=True, tile0=2),
-    )
-    Q0 = sod_like_state(solver)
-    dt = 2e-3
-    ref = np.asarray(jax.jit(ref_lim.step)(Q0, dt))
-
-    mesh = make_mesh(8)
-    accel = ShardedPallasADERDG(solver, mesh, interpret=True, tile0=1)
-    lim = LimitedADERDG(
-        solver, admissible=euler_admissible(dim=2),
-        troubled_capacity=8, troubled_granularity="row",
-        accelerator=accel,
-    )
-    ndim = len(solver.state_shape)
-    spec = [None] * ndim
-    spec[solver.grid_axis(0)] = "patches"
-    sharding = NamedSharding(mesh, PartitionSpec(*spec))
-    Qs = jax.device_put(Q0, sharding)
-    stepped = jax.jit(
-        lim.step, in_shardings=(sharding, None), out_shardings=sharding
-    )
-    got = np.asarray(stepped(Qs, dt))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
-    hlo = stepped.lower(Qs, dt).compile().as_text()
-    assert "collective-permute" in hlo
-
-
-def test_row_gathered_with_2axis_sharded_accelerator_matches():
-    """Multi-slice production: the limiter (row-gathered fallback) over an
-    ICI x DCN 2-axis-sharded fused predictor — matches the single-device
-    accelerated step to 1e-12 on a (4,2) mesh."""
-    import jax
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec
-
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.parallel.shard import ShardedPallasADERDG2Axis
-
-    solver = make_solver(cells=8, order=2)
-    ref_lim = LimitedADERDG(
-        solver, admissible=euler_admissible(dim=2),
-        troubled_capacity=8, troubled_granularity="row",
-        accelerator=PallasADERDG(
-            solver, interpret=True, tile0=2, epilogue_axes=(0, 1)
-        ),
-    )
-    Q0 = sod_like_state(solver)
-    dt = 2e-3
-    ref = np.asarray(jax.jit(ref_lim.step)(Q0, dt))
-
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("ici", "dcn"))
-    accel = ShardedPallasADERDG2Axis(solver, mesh, interpret=True, tile0=1)
-    lim = LimitedADERDG(
-        solver, admissible=euler_admissible(dim=2),
-        troubled_capacity=8, troubled_granularity="row",
-        accelerator=accel,
-    )
-    ndim = len(solver.state_shape)
-    spec = [None] * ndim
-    spec[solver.grid_axis(0)] = "ici"
-    spec[solver.grid_axis(1)] = "dcn"
-    sharding = NamedSharding(mesh, PartitionSpec(*spec))
-    Qs = jax.device_put(Q0, sharding)
-    stepped = jax.jit(
-        lim.step, in_shardings=(sharding, None), out_shardings=sharding
-    )
-    got = np.asarray(stepped(Qs, dt))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
-
-
-def test_row_gathered_2axis_sharded_walled_blast_matches():
-    """Round 4 (VERDICT item 10): the capstone production shape — a
-    LIMITED run in a fully walled (outflow) box over an ICI x DCN 2-axis
-    mesh — matches the single-device accelerated step to 1e-12 on a
-    (4,2) mesh; both sharded axes carry a domain wall."""
-    import jax
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec
-
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.parallel.shard import ShardedPallasADERDG2Axis
-
-    solver = make_solver(cells=8, order=2, boundary="outflow")
-    ref_lim = LimitedADERDG(
-        solver, admissible=euler_admissible(dim=2),
-        troubled_capacity=8, troubled_granularity="row",
-        accelerator=PallasADERDG(
-            solver, interpret=True, tile0=2, epilogue_axes=(0, 1)
-        ),
-    )
-    Q0 = sod_like_state(solver)
-    dt = 2e-3
-    ref = np.asarray(jax.jit(ref_lim.step)(Q0, dt))
-
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("ici", "dcn"))
-    accel = ShardedPallasADERDG2Axis(solver, mesh, interpret=True, tile0=1)
-    lim = LimitedADERDG(
-        solver, admissible=euler_admissible(dim=2),
-        troubled_capacity=8, troubled_granularity="row",
-        accelerator=accel,
-    )
-    ndim = len(solver.state_shape)
-    spec = [None] * ndim
-    spec[solver.grid_axis(0)] = "ici"
-    spec[solver.grid_axis(1)] = "dcn"
-    sharding = NamedSharding(mesh, PartitionSpec(*spec))
-    Qs = jax.device_put(Q0, sharding)
-    stepped = jax.jit(
-        lim.step, in_shardings=(sharding, None), out_shardings=sharding
-    )
-    got = np.asarray(stepped(Qs, dt))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
-
-
 @pytest.mark.parametrize("granularity", ["cell", "row"])
 def test_gathered_random_masks_conserve(granularity):
     """Randomized forced-troubled sets (scattered, clustered, wrapping):
@@ -584,138 +497,6 @@ def test_capacity_usage_diagnostic(granularity):
     plain = LimitedADERDG(solver, admissible=euler_admissible(dim=2))
     with pytest.raises(ValueError, match="requires troubled_capacity"):
         plain.capacity_usage(Q0, 2e-3)
-
-
-# ----------------------------------------------- fused Pallas subcell sweeps
-
-
-def test_subcell_pallas_matches_xla_path():
-    """`subcell_pallas=True` (interpret mode) reproduces the XLA gathered
-    row path — state and effective fluxes — on a shock step.  The kernel
-    body calls the same `_row_sweep_math`, so only reduction ordering can
-    differ (mean of edge fluxes): tolerance is a few ulps."""
-    solver = make_solver(cells=8, order=2)
-    kw = dict(
-        admissible=euler_admissible(dim=2), troubled_capacity=8,
-        troubled_granularity="row",
-    )
-    base = LimitedADERDG(solver, **kw)
-    fast = LimitedADERDG(
-        solver, subcell_pallas=True, subcell_interpret=True, **kw
-    )
-    Q0 = sod_like_state(solver)
-    dt = 2e-3
-    force_all = lambda t: jnp.ones_like(t)
-    a, eff_a = base.step(
-        Q0, dt, return_face_fluxes=True, troubled_transform=force_all
-    )
-    b, eff_b = fast.step(
-        Q0, dt, return_face_fluxes=True, troubled_transform=force_all
-    )
-    np.testing.assert_allclose(
-        np.asarray(b), np.asarray(a), rtol=0, atol=1e-13
-    )
-    for x, y in zip(eff_a, eff_b):
-        np.testing.assert_allclose(
-            np.asarray(y), np.asarray(x), rtol=0, atol=1e-13
-        )
-
-
-def test_subcell_pallas_walls_and_multistep():
-    """Reflective walls + a 15-step run: conservation to rounding and
-    admissibility, matching the XLA path's contract."""
-    solver = make_solver(
-        cells=8, order=2, boundary="reflective",
-        reflect_fn=euler_reflect(2), reflect_flux_fn=euler_reflect_flux(2),
-    )
-    limited = LimitedADERDG(
-        solver, admissible=euler_admissible(dim=2), troubled_capacity=8,
-        troubled_granularity="row", subcell_pallas=True,
-        subcell_interpret=True,
-    )
-    Q0 = sod_like_state(solver)
-    m0 = np.asarray(solver.total_mass(Q0))[0]
-    Q = limited.run(Q0, 15, 3e-3)
-    m1 = np.asarray(solver.total_mass(Q))[0]
-    np.testing.assert_allclose(m1, m0, rtol=0, atol=1e-12)
-    ok = euler_admissible(dim=2)(Q, solver.var_axis)
-    assert bool(np.asarray(ok).all())
-
-
-def test_subcell_pallas_physics_variants_parity():
-    """Source + NCP + dissipation mask + anisotropic dx through the Pallas
-    sweeps: parity with the XLA gathered path."""
-    def flux(Q, axis, va):
-        return 0.5 * Q * Q
-
-    def eig(Q, axis, va):
-        return jnp.max(jnp.abs(Q), axis=va)
-
-    def ncp(Q, dQ, axis, va):
-        return 0.1 * dQ
-
-    def src(Q, va):
-        return -0.2 * Q
-
-    solver = ADERDGSolver(
-        dim=2, order=2, n_vars=2, grid_shape=(6, 8),
-        flux_fn=flux, max_eigenvalue_fn=eig, dx=(0.2, 0.15),
-        ncp_fn=ncp, source_fn=src, dissipation_mask=(1.0, 0.0),
-    )
-    kw = dict(troubled_capacity=6, troubled_granularity="row")
-    base = LimitedADERDG(solver, **kw)
-    fast = LimitedADERDG(
-        solver, subcell_pallas=True, subcell_interpret=True, **kw
-    )
-    rng = np.random.default_rng(11)
-    u0 = jnp.asarray(0.5 + rng.random(solver.state_shape))
-    force_all = lambda t: jnp.ones_like(t)
-    dt = 1e-3
-    a = np.asarray(base.step(u0, dt, troubled_transform=force_all))
-    b = np.asarray(fast.step(u0, dt, troubled_transform=force_all))
-    np.testing.assert_allclose(b, a, rtol=0, atol=1e-13)
-
-
-def test_subcell_pallas_3d():
-    """3-D (the bench shape class): Pallas sweeps match the XLA path."""
-    flux, eig = euler_physics(dim=3, n_real=5)
-    solver = ADERDGSolver(
-        dim=3, order=2, n_vars=5, grid_shape=(6, 4, 8),
-        flux_fn=flux, max_eigenvalue_fn=eig, dx=1.0 / 6,
-    )
-    kw = dict(
-        admissible=euler_admissible(dim=3), troubled_capacity=24,
-        troubled_granularity="row",
-    )
-    base = LimitedADERDG(solver, **kw)
-    fast = LimitedADERDG(
-        solver, subcell_pallas=True, subcell_interpret=True, **kw
-    )
-    x = np.arange(6).reshape(-1, 1, 1) / 6.0
-    left = np.broadcast_to(x < 0.5, (6, 4, 8))
-    no_var = (
-        solver.state_shape[: solver.var_axis]
-        + solver.state_shape[solver.var_axis + 1 :]
-    )
-    rho = np.broadcast_to(np.where(left, 1.0, 0.125), no_var)
-    p = np.broadcast_to(np.where(left, 1.0, 0.1), no_var)
-    z = np.zeros(no_var)
-    Q0 = jnp.asarray(np.stack([rho, z, z, z, p / 0.4], axis=solver.var_axis))
-    dt = 4e-3
-    a = np.asarray(base.step(Q0, dt))
-    b = np.asarray(fast.step(Q0, dt))
-    np.testing.assert_allclose(b, a, rtol=0, atol=1e-13)
-
-
-def test_subcell_pallas_rejects_bad_configs():
-    solver = make_solver(cells=8, order=2)
-    with pytest.raises(ValueError):
-        LimitedADERDG(solver, subcell_pallas=True)  # no capacity
-    with pytest.raises(ValueError):
-        LimitedADERDG(
-            solver, subcell_pallas=True, troubled_capacity=8,
-            troubled_granularity="cell",
-        )
 
 
 def test_gathered_overflow_means_policy():
@@ -781,8 +562,8 @@ def test_row_gathered_sharded_rmhd_matches_single_device():
     import jax
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.models import rmhd as m
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.models import rmhd as m
+    from exahype_jax.parallel import make_mesh
 
     GAMMA = 4.0 / 3.0
     flux, eig = m.rmhd(gamma=GAMMA, c_h=1.0, iters=8)

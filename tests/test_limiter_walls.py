@@ -27,15 +27,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models.aderdg import (
+from exahype_jax.models.aderdg import (
     ADERDGSolver,
     euler_physics,
     euler_reflect,
     euler_reflect_flux,
     make_dirichlet_fn,
 )
-from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
-from exahype_tpu.utils.errors import SemanticError
+from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
+from exahype_jax.utils.errors import SemanticError
 
 
 def make_solver(cells=8, order=2, **kw):

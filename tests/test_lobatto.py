@@ -15,8 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models.aderdg import ADERDGSolver
-from exahype_tpu.models.dg import (
+from exahype_jax.models.aderdg import ADERDGSolver
+from exahype_jax.models.dg import (
     basis_nodes,
     gauss_lobatto,
     lagrange_eval,
@@ -166,7 +166,7 @@ def test_lobatto_conservation_and_face_nodal_values():
 
 
 def _euler_wave_solver(cells, order, basis):
-    from exahype_tpu.models.aderdg import euler_physics
+    from exahype_jax.models.aderdg import euler_physics
 
     flux, eig = euler_physics(dim=2, n_real=4)
     return ADERDGSolver(
@@ -192,14 +192,14 @@ def _euler_wave_state(solver, t=0.0, vel=(1.0, 0.5), p=2.0, gamma=1.4):
 
 
 def test_lobatto_pallas_parity():
-    """The fused VMEM predictor consumes only `solver.ops` — the Lobatto
-    matrices must flow through unchanged."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
+    """The fused Pallas cell stage consumes only `solver.ops` — the
+    Lobatto matrices must flow through unchanged."""
+    from exahype_jax.models.aderdg_triton import TritonADERDG
 
     solver = _euler_wave_solver(8, 3, "lobatto")
     Q0 = _euler_wave_state(solver)
     ref = np.asarray(solver.step(Q0, 1e-3))
-    fused = PallasADERDG(solver, interpret=True, tile0=2)
+    fused = TritonADERDG(solver, interpret=True)
     got = np.asarray(fused.step(Q0, 1e-3))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-13)
 
@@ -207,7 +207,7 @@ def test_lobatto_pallas_parity():
 def test_lobatto_limited_step_conserves():
     """The MOOD limiter's subcell projection/reconstruction follow the
     solver's basis; a limited step with forced troubled cells conserves."""
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models.limiter import LimitedADERDG
 
     solver = _euler_wave_solver(6, 2, "lobatto")
     lim = LimitedADERDG(solver)
@@ -233,8 +233,8 @@ def test_lobatto_limited_step_conserves():
 def test_lobatto_point_source_duality_and_tracer_sampling():
     """delta_field duality and tracer interpolation hold in the solver's
     lumped (Lobatto) inner product."""
-    from exahype_tpu.models.point_source import PointSources
-    from exahype_tpu.models.tracers import TracerAdvector
+    from exahype_jax.models.point_source import PointSources
+    from exahype_jax.models.tracers import TracerAdvector
 
     solver = _euler_wave_solver(6, 3, "lobatto")
     pos = jnp.asarray([[0.37, 0.61]])

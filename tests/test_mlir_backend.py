@@ -1,7 +1,7 @@
 """MLIR backend tests: structure of the emitted standard-dialect module."""
 
-from exahype_tpu.backends.mlir_backend import MLIRPrinter
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.backends.mlir_backend import MLIRPrinter
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 
 def test_mlir_module_structure():
@@ -38,8 +38,8 @@ def test_mlir_balanced_braces_and_ssa_uniqueness():
 
 
 def test_visitor_dispatch():
-    from exahype_tpu.ir import kernel_ir
-    from exahype_tpu.utils.visitor import Visitor, camel_to_snake
+    from exahype_jax.ir import kernel_ir
+    from exahype_jax.utils.visitor import Visitor, camel_to_snake
 
     assert camel_to_snake("LoopFunction") == "loop_function"
 
@@ -64,7 +64,7 @@ def test_visitor_dispatch():
 
 
 def _verify(code):
-    from exahype_tpu.ir.mlir_text import parse_and_verify
+    from exahype_jax.ir.mlir_text import parse_and_verify
 
     return parse_and_verify(code)
 
@@ -73,7 +73,7 @@ def test_mlir_modules_machine_verified():
     """Every emitted module parses and type-checks through the strict
     SSA/type verifier (VERDICT r1 missing item 1: the reference gets this
     from xDSL op invariants, SymPyToMLIR.py:1282-1299)."""
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
 
     specs = [
         build_rusanov_kernel(),
@@ -125,7 +125,7 @@ def test_mlir_for_to_parallel():
 def test_mlir_verifier_rejects_malformed():
     import pytest
 
-    from exahype_tpu.utils.errors import VerifyError
+    from exahype_jax.utils.errors import VerifyError
 
     kb = build_rusanov_kernel()
     good = MLIRPrinter(kb).code
@@ -164,11 +164,11 @@ def test_mlir_verifier_rejects_malformed():
 def test_cli_emit_mlir_with_for_to_parallel(tmp_path):
     import pathlib
 
-    from exahype_tpu.tools.exahype_opt import run
+    from exahype_jax.tools.exahype_opt import run
 
     spec = tmp_path / "spec.py"
     spec.write_text(
-        "from exahype_tpu.models.rusanov import build_rusanov_kernel\n"
+        "from exahype_jax.models.rusanov import build_rusanov_kernel\n"
         "def build():\n"
         "    return build_rusanov_kernel()\n"
     )

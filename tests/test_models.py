@@ -1,17 +1,16 @@
 """Model-family tests: each hyperbolic system runs through both the FV
-Rusanov spec pipeline (JAX backend vs NumPy oracle is covered elsewhere;
-here JAX vs Pallas-interpret) and the ADER-DG solver."""
+Rusanov spec pipeline (JAX backend vs NumPy oracle is covered elsewhere)
+and the ADER-DG solver."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.backends.jax_backend import JAXPrinter
-from exahype_tpu.backends.pallas_backend import PallasPrinter
-from exahype_tpu.models import hyperbolic
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.backends.jax_backend import JAXPrinter
+from exahype_jax.models import hyperbolic
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 
 def state_for(name, shape, seed=0):
@@ -47,10 +46,6 @@ def test_fv_rusanov_model_family(name, kwargs, n_vars):
     out_jax = np.asarray(JAXPrinter(kb).build()(Q0, 0.005))
     assert np.isfinite(out_jax).all()
     assert not np.array_equal(out_jax, Q0)
-    # Pallas path (interpret) agrees via the auto-derived SoA-P adapter.
-    fused = PallasPrinter(kb, interpret=True, tile_patches=1).build_aos()
-    out_pallas = np.asarray(fused(Q0, 0.005))
-    np.testing.assert_allclose(out_pallas, out_jax, rtol=0, atol=1e-13)
 
 
 @pytest.mark.parametrize("name,kwargs,n_vars", CASES)
@@ -97,11 +92,11 @@ def test_shallow_water_lake_at_rest():
 def test_corrected_fv_kernel_triple_differential(tmp_path):
     """The scaled/corrected FV kernel (struct_override path) agrees across
     JAX, oracle, and native C++ like every other spec."""
-    from exahype_tpu.backends.cpp_backend import CPPPrinter
-    from exahype_tpu.backends.cpp_runtime import compile_kernel, euler_sources
-    from exahype_tpu.backends.numpy_oracle import run_oracle
-    from exahype_tpu.models import euler_numpy
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.backends.cpp_backend import CPPPrinter
+    from exahype_jax.backends.cpp_runtime import compile_kernel, euler_sources
+    from exahype_jax.backends.numpy_oracle import run_oracle
+    from exahype_jax.models import euler_numpy
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
 
     kb = build_fv_rusanov_kernel(dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=0)
     rng = np.random.default_rng(0)
@@ -128,8 +123,8 @@ def test_corrected_fv_kernel_triple_differential(tmp_path):
 def test_corrected_fv_dissipation_covers_all_vars():
     """Unlike the canonical reference spec (dissipation on variable 0 only),
     the corrected kernel's Rusanov viscosity must act on every real var."""
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
-    from exahype_tpu.frontend.statements import StatementKind
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.frontend.statements import StatementKind
 
     kb = build_fv_rusanov_kernel(dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=0)
     loops = [s for s in kb.statements if s.kind is StatementKind.LOOP]
@@ -140,8 +135,8 @@ def test_corrected_fv_dissipation_covers_all_vars():
 def test_elastic_plane_wave_aderdg():
     """Exact P-wave propagation through ADER-DG: high-order accuracy on the
     linear elastic system."""
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models.elastic import elastic, plane_p_wave, _speeds
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models.elastic import elastic, plane_p_wave, _speeds
 
     rho, lam, mu = 1.0, 2.0, 1.0
     flux, eig = elastic(rho=rho, lam=lam, mu=mu)
@@ -170,7 +165,7 @@ def test_elastic_plane_wave_aderdg():
 
 
 def test_mhd_fv_constant_state_and_conservation():
-    from exahype_tpu.models import mhd as mhd_mod
+    from exahype_jax.models import mhd as mhd_mod
 
     flux, eig = mhd_mod.mhd()
     kb = build_rusanov_kernel(
@@ -188,8 +183,8 @@ def test_mhd_fv_constant_state_and_conservation():
 
 
 def test_mhd_aderdg_runs_and_conserves():
-    from exahype_tpu.models import mhd as mhd_mod
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import mhd as mhd_mod
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
 
     flux, eig = mhd_mod.mhd()
     solver = ADERDGSolver(
@@ -215,8 +210,8 @@ def test_mhd_aderdg_runs_and_conserves():
 def test_heterogeneous_elastic_layered_medium():
     """Seismic use case: a P-wave crossing a material interface partially
     reflects; material fields stay exactly frozen and the run stays finite."""
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models.elastic import (
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models.elastic import (
         elastic_heterogeneous,
         plane_p_wave,
     )
@@ -270,7 +265,7 @@ def test_heterogeneous_elastic_layered_medium():
 
 class TestSWEBathymetry:
     def _solver(self, cells=16, order=3):
-        from exahype_tpu.models.swe import make_swe_solver
+        from exahype_jax.models.swe import make_swe_solver
 
         return make_swe_solver(
             dim=2, order=order, grid_shape=(cells, cells), dx=1.0 / cells
@@ -280,7 +275,7 @@ class TestSWEBathymetry:
         """h + b = const, u = 0 stays steady up to spatial truncation (the
         nodal scheme is not exactly well-balanced; the residual must be tiny
         and converge away)."""
-        from exahype_tpu.models.swe import lake_at_rest
+        from exahype_jax.models.swe import lake_at_rest
 
         residuals = []
         for cells in (8, 16):
@@ -294,7 +289,7 @@ class TestSWEBathymetry:
         )
 
     def test_water_mass_conserved_and_b_frozen(self):
-        from exahype_tpu.models.swe import lake_at_rest
+        from exahype_jax.models.swe import lake_at_rest
 
         solver = self._solver(cells=8)
         Q0 = lake_at_rest(solver)
@@ -318,24 +313,12 @@ class TestSWEBathymetry:
         # and the dynamics are not trivial
         assert float(jnp.max(jnp.abs(Q - Q0))) > 1e-4
 
-    def test_pallas_parity(self):
-        from exahype_tpu.models.aderdg_pallas import PallasADERDG
-        from exahype_tpu.models.swe import lake_at_rest, make_swe_solver
-
-        solver = make_swe_solver(dim=2, order=2, grid_shape=(8, 128), dx=1.0 / 8)
-        Q0 = lake_at_rest(solver)
-        ref = np.asarray(solver.step(Q0, 1e-4))
-        got = np.asarray(
-            PallasADERDG(solver, interpret=True, tile0=2).step(Q0, 1e-4)
-        )
-        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-13)
-
 
 def test_srhd_con2prim_roundtrip():
     """prim -> cons -> con2prim identity at relativistic Lorentz factors."""
     import jax.numpy as jnp
 
-    from exahype_tpu.models import srhd
+    from exahype_jax.models import srhd
 
     rng = np.random.default_rng(11)
     rho = jnp.asarray(0.5 + rng.random((64,)))
@@ -356,7 +339,7 @@ def test_srhd_con2prim_roundtrip():
 def test_srhd_flux_at_rest_and_causality():
     import jax.numpy as jnp
 
-    from exahype_tpu.models import srhd
+    from exahype_jax.models import srhd
 
     flux, eig = srhd.srhd(dim=2)
     rho = jnp.asarray([1.0, 2.0])
@@ -393,8 +376,8 @@ def test_srhd_aderdg_runs_and_conserves():
     import jax
     import jax.numpy as jnp
 
-    from exahype_tpu.models import srhd
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import srhd
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
 
     flux, eig = srhd.srhd(dim=2)
     solver = ADERDGSolver(
@@ -434,9 +417,9 @@ def test_srhd_limited_shock_tube():
     import jax
     import jax.numpy as jnp
 
-    from exahype_tpu.models import srhd
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models import srhd
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models.limiter import LimitedADERDG
 
     flux, eig = srhd.srhd(dim=2)
     g = 16
@@ -479,11 +462,11 @@ def test_muscl_dsl_second_order_convergence():
     canonical first-order kernel by a wide margin at the same resolution."""
     import jax
 
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
-    from exahype_tpu.models.muscl import build_muscl_kernel
-    from exahype_tpu.parallel import GridSolver, PatchGrid
-    from exahype_tpu.utils.config import KernelConfig
-    from exahype_tpu.utils.output import assemble_global, disassemble_global
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.models.muscl import build_muscl_kernel
+    from exahype_jax.parallel import GridSolver, PatchGrid
+    from exahype_jax.utils.config import KernelConfig
+    from exahype_jax.utils.output import assemble_global, disassemble_global
 
     flux, eig = hyperbolic.advection((1.0, 0.0))
 
@@ -534,11 +517,11 @@ def test_muscl_dsl_differential_and_conservation(tmp_path):
     """The MUSCL spec runs the full differential harness: JAX vs the NumPy
     oracle bitwise, and the generated C++ compiles and agrees; total mass
     is conserved (flux form)."""
-    from exahype_tpu.backends.cpp_backend import CPPPrinter
-    from exahype_tpu.backends.cpp_runtime import compile_kernel, euler_sources
-    from exahype_tpu.backends.numpy_oracle import run_oracle
-    from exahype_tpu.models import euler_numpy
-    from exahype_tpu.models.muscl import build_muscl_kernel
+    from exahype_jax.backends.cpp_backend import CPPPrinter
+    from exahype_jax.backends.cpp_runtime import compile_kernel, euler_sources
+    from exahype_jax.backends.numpy_oracle import run_oracle
+    from exahype_jax.models import euler_numpy
+    from exahype_jax.models.muscl import build_muscl_kernel
 
     kb = build_muscl_kernel(dim=2, patch_size=4, halo_size=2, n_real=5, n_aux=0)
     rng = np.random.default_rng(0)
@@ -562,30 +545,12 @@ def test_muscl_dsl_differential_and_conservation(tmp_path):
     np.testing.assert_array_equal(got_cpp, want)
 
 
-def test_muscl_pallas_parity():
-    """The MUSCL spec lowers through the fused Pallas kernel too (interpret
-    mode), matching the JAX backend to 1e-13."""
-    from exahype_tpu.models.muscl import build_muscl_kernel
-
-    flux, eig = hyperbolic.advection((1.0, 0.5))
-    kb = build_muscl_kernel(
-        dim=2, patch_size=4, halo_size=2, n_real=2, n_aux=0, n_patches=2,
-        flux_impl=flux, eigenvalue_impl=eig,
-    )
-    rng = np.random.default_rng(4)
-    Q0 = rng.normal(size=kb.item_shape("Q"))
-    out_jax = np.asarray(JAXPrinter(kb).build()(Q0, 0.01))
-    fused = PallasPrinter(kb, interpret=True, tile_patches=1).build_aos()
-    out_pallas = np.asarray(fused(Q0, 0.01))
-    np.testing.assert_allclose(out_pallas, out_jax, rtol=0, atol=1e-13)
-
-
 def test_srhd_con2prim_high_lorentz_and_vacuum():
     """VERDICT r2 item 8: the safeguarded bracket recovery must land on the
     pressure root (residual to round-off) in the regimes the astrophysics
     family exists for — high Lorentz factor and near-vacuum — not just the
     mild W<=4 round-trip."""
-    from exahype_tpu.models import srhd
+    from exahype_jax.models import srhd
 
     rng = np.random.default_rng(8)
 
@@ -627,7 +592,7 @@ def test_srhd_con2prim_high_lorentz_and_vacuum():
 def test_srhd_con2prim_newton_unchanged_in_mild_regime():
     """The safeguard must be invisible where plain Newton already converged
     (same root to round-off at W <= 4)."""
-    from exahype_tpu.models import srhd
+    from exahype_jax.models import srhd
 
     rng = np.random.default_rng(9)
     n = 512
@@ -646,8 +611,8 @@ def test_srhd_con2prim_newton_unchanged_in_mild_regime():
 
 
 def _free_surface_solver(cells=8, order=3, wall_axes=None):
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models.elastic import elastic, elastic_free_surface
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models.elastic import elastic, elastic_free_surface
 
     flux, eig = elastic(rho=1.0, lam=2.0, mu=1.0)
     refl, refl_f = elastic_free_surface()
@@ -684,7 +649,7 @@ def test_free_surface_conserves_momentum_exactly():
     velocity jump vanishes, the traction averages cancel), so total
     momentum is conserved to rounding in a closed free-surface box —
     while the stress totals are NOT (the surface does work on them)."""
-    from exahype_tpu.models.elastic import plane_p_wave
+    from exahype_jax.models.elastic import plane_p_wave
 
     solver = _free_surface_solver(cells=8, order=3)
     coords = solver.nodes_meshgrid()
@@ -725,7 +690,7 @@ def test_free_surface_p_wave_reflection():
     with coefficient +1 (free end), the normal stress with −1 — compared
     against the analytic image solution while the pulse is clear of the
     wall again."""
-    from exahype_tpu.models.elastic import _speeds
+    from exahype_jax.models.elastic import _speeds
 
     cells, order = 24, 3
     solver = _free_surface_solver(cells=cells, order=order, wall_axes=(0,))
@@ -770,7 +735,7 @@ def test_wall_axes_subset_matches_full_walls_on_invariant_data():
     the y-walls are then no-ops, so the periodic y-axis must agree."""
     import jax.numpy as jnp
 
-    from exahype_tpu.models.aderdg import (
+    from exahype_jax.models.aderdg import (
         ADERDGSolver,
         euler_physics,
         euler_reflect,
@@ -807,13 +772,13 @@ def test_wall_axes_subset_matches_full_walls_on_invariant_data():
 
 
 def test_wall_axes_validation():
-    from exahype_tpu.utils.errors import SemanticError
+    from exahype_jax.utils.errors import SemanticError
 
     with pytest.raises(SemanticError):
         _free_surface_solver(wall_axes=(2,))      # out of range
     with pytest.raises(SemanticError):
         _free_surface_solver(wall_axes=())        # empty
-    from exahype_tpu.models.aderdg import ADERDGSolver
+    from exahype_jax.models.aderdg import ADERDGSolver
     from tests.test_aderdg import advection_physics
 
     flux, eig = advection_physics((1.0, 1.0))
@@ -828,8 +793,8 @@ def test_pool_rejects_partial_walls():
     """The limiter ACCEPTS per-axis ``wall_axes`` since round 4
     (tests/test_limiter_walls.py pins that); the ADER-DG pool still
     guards them out explicitly."""
-    from exahype_tpu.models.aderdg_pool import ADERDGPoolRefinement
-    from exahype_tpu.utils.errors import SemanticError
+    from exahype_jax.models.aderdg_pool import ADERDGPoolRefinement
+    from exahype_jax.utils.errors import SemanticError
 
     solver = _free_surface_solver(wall_axes=(0,))
     with pytest.raises(SemanticError):
@@ -841,7 +806,7 @@ def test_het_free_surface_conserves_momentum_exactly():
     wall momentum flux is exactly zero, so total momentum conserves to
     rounding even across material interfaces; the material slots stay
     bitwise frozen."""
-    from exahype_tpu.models.elastic import (
+    from exahype_jax.models.elastic import (
         elastic_free_surface_het,
         elastic_heterogeneous,
         plane_p_wave,
@@ -883,7 +848,7 @@ def test_het_free_surface_conserves_momentum_exactly():
 def test_sponge_absorbs_outgoing_pulse():
     """Sponge layer: a P pulse travelling into the absorbing band loses
     >90 % of its energy instead of wrapping around the periodic domain."""
-    from exahype_tpu.models.elastic import (
+    from exahype_jax.models.elastic import (
         _speeds,
         elastic,
         plane_p_wave,
@@ -933,7 +898,7 @@ def test_elastic3d_flux_reduces_to_2d():
     """z-invariant states with v_z = σ_·z = 0: the 3-D fluxes restrict to
     the 2-D system's on the shared components (independent derivation
     cross-check)."""
-    from exahype_tpu.models.elastic import elastic3d_flux, elastic_flux
+    from exahype_jax.models.elastic import elastic3d_flux, elastic_flux
 
     rng = np.random.default_rng(2)
     q2 = rng.standard_normal((7, 5))
@@ -952,7 +917,7 @@ def test_elastic3d_flux_reduces_to_2d():
 @pytest.mark.parametrize("wave", ["p", "s"])
 def test_elastic3d_plane_wave_aderdg(wave):
     """Exact P and S plane waves through the 3-D solver at order 3."""
-    from exahype_tpu.models.elastic import (
+    from exahype_jax.models.elastic import (
         elastic3d,
         plane_p_wave_3d,
         plane_s_wave_3d,
@@ -985,7 +950,7 @@ def test_elastic3d_plane_wave_aderdg(wave):
 
 def test_elastic3d_free_surface_momentum_exact():
     """Closed 3-D free-surface box: total momentum conserved to rounding."""
-    from exahype_tpu.models.elastic import (
+    from exahype_jax.models.elastic import (
         elastic3d,
         elastic3d_free_surface,
         plane_p_wave_3d,
@@ -1018,38 +983,13 @@ def test_elastic3d_free_surface_momentum_exact():
     assert abs(m1[3] - m0[3]) > 1e-10  # the stresses DO change
 
 
-def test_elastic3d_fused_pallas_parity():
-    """The 3-D seismic system runs on the flagship fused predictor
-    (interpret mode here; the kernel is physics-generic) at 1e-12 parity
-    with the base solver."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.models.elastic import elastic3d, plane_p_wave_3d
-
-    flux, eig = elastic3d()
-    cells = 4
-    solver = ADERDGSolver(
-        dim=3, order=2, n_vars=9, grid_shape=(cells,) * 3,
-        flux_fn=wrap_var_last(flux), max_eigenvalue_fn=wrap_var_last(eig),
-        dx=1.0 / cells,
-    )
-    fused = PallasADERDG(solver, interpret=True)
-    coords = solver.nodes_meshgrid()
-    no_var = solver.state_shape[:3] + solver.state_shape[4:]
-    X = np.broadcast_to(np.squeeze(coords[0], axis=solver.var_axis), no_var)
-    u = jnp.asarray(np.moveaxis(plane_p_wave_3d(X, 0.0), -1, solver.var_axis))
-    dt = 1e-3
-    ref = np.asarray(solver.step(u, dt))
-    got = np.asarray(fused.step(u, dt))
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-15)
-
-
 # --------------------------------------------------------------------- RMHD
 
 
 def test_rmhd_con2prim_roundtrip():
     """prim → cons → prim at 1e-10 across W up to ~7 and magnetizations up
     to σ ~ 10 (the regimes the GRMHD family exists for)."""
-    from exahype_tpu.models import rmhd as m
+    from exahype_jax.models import rmhd as m
 
     rng = np.random.default_rng(0)
     n = 256
@@ -1077,8 +1017,8 @@ def test_rmhd_con2prim_roundtrip():
 def test_rmhd_reduces_to_srhd_at_zero_field():
     """B = 0: the RMHD fluxes must equal the SRHD fluxes exactly (the two
     modules derive them independently)."""
-    from exahype_tpu.models import rmhd as m
-    from exahype_tpu.models import srhd
+    from exahype_jax.models import rmhd as m
+    from exahype_jax.models import srhd
 
     rng = np.random.default_rng(1)
     n = 64
@@ -1100,7 +1040,7 @@ def test_rmhd_reduces_to_srhd_at_zero_field():
 
 
 def test_rmhd_causality():
-    from exahype_tpu.models import rmhd as m
+    from exahype_jax.models import rmhd as m
 
     rng = np.random.default_rng(2)
     n = 128
@@ -1119,8 +1059,8 @@ def test_rmhd_aderdg_constant_state_and_conservation():
     """Constant magnetized state is an exact steady state; on a smooth
     perturbed state every conserved total (incl. B) holds to rounding on
     the periodic domain."""
-    from exahype_tpu.models import rmhd as m
-    from exahype_tpu.models.aderdg import wrap_var_last
+    from exahype_jax.models import rmhd as m
+    from exahype_jax.models.aderdg import wrap_var_last
 
     flux, eig = m.rmhd(c_h=1.0)
     cells = 4
@@ -1170,7 +1110,7 @@ def test_rmhd_aderdg_constant_state_and_conservation():
 
 
 def test_rmhd_admissibility_hook():
-    from exahype_tpu.models import rmhd as m
+    from exahype_jax.models import rmhd as m
 
     good = m.prim_to_cons(
         jnp.asarray([1.0]), jnp.asarray([[0.3, 0.0, 0.0]]),
@@ -1187,7 +1127,7 @@ def test_rmhd_con2prim_bounded_on_garbage():
     states BEFORE rejecting them; the recovery must return bounded
     subluminal primitives (and finite fluxes) even then — regression for
     the sB/z blow-up that destabilized the limited OT run."""
-    from exahype_tpu.models import rmhd as m
+    from exahype_jax.models import rmhd as m
 
     garbage = jnp.asarray([
         [-1.0, 5.0, -3.0, 2.0, -10.0, 1.0, 2.0, 0.5, 0.1],   # D<0, E<0
@@ -1208,8 +1148,8 @@ def test_rmhd_limited_vortex_stable_and_conservative():
     """Limited RMHD on the (under-resolved) relativistic OT setup: stays
     bounded and conserves all 8 physical totals to rounding — the limiter
     composition that exploded before the recovery clamp."""
-    from exahype_tpu.models import rmhd as m
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models import rmhd as m
+    from exahype_jax.models.limiter import LimitedADERDG
 
     GAMMA = 4.0 / 3.0
     cells = 8
@@ -1251,46 +1191,13 @@ def test_rmhd_limited_vortex_stable_and_conservative():
     np.testing.assert_allclose(m1[:8], m0[:8], rtol=1e-12, atol=1e-12)
 
 
-def test_rmhd_fused_pallas_parity():
-    """RMHD runs on the fused Pallas predictor (interpret mode): the
-    AD-Newton con2prim inlines into the kernel body at 1e-12 parity."""
-    from exahype_tpu.models import rmhd as m
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    flux, eig = m.rmhd(c_h=1.0, iters=8)
-    cells = 4
-    solver = ADERDGSolver(
-        dim=2, order=2, n_vars=9, grid_shape=(cells, cells),
-        flux_fn=wrap_var_last(flux), max_eigenvalue_fn=wrap_var_last(eig),
-        dx=1.0 / cells,
-    )
-    fused = PallasADERDG(solver, interpret=True)
-    coords = solver.nodes_meshgrid()
-    no_var = solver.state_shape[:2] + solver.state_shape[3:]
-    X = np.broadcast_to(np.squeeze(coords[0], solver.var_axis), no_var)
-    Y = np.broadcast_to(np.squeeze(coords[1], solver.var_axis), no_var)
-    rho = 1.0 + 0.2 * np.sin(2 * np.pi * (X + Y))
-    v = np.stack([0.3 * np.ones_like(X), -0.1 * np.ones_like(X),
-                  0.05 * np.ones_like(X)], -1)
-    B = np.stack([0.4 * np.ones_like(X), 0.2 * np.ones_like(X),
-                  -0.1 * np.ones_like(X)], -1)
-    u = jnp.asarray(np.moveaxis(np.asarray(m.prim_to_cons(
-        jnp.asarray(rho), jnp.asarray(v), jnp.asarray(0.8 * rho),
-        jnp.asarray(B),
-    )), -1, solver.var_axis))
-    dt = 1e-3
-    ref = np.asarray(solver.step(u, dt))
-    got = np.asarray(fused.step(u, dt))
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-14)
-
-
 def test_srhd_kernel_in_the_dsl():
     """The reference's own spec language drives relativistic physics: the
     FV Rusanov kernel built with SRHD callbacks (fixed-trip con2prim
     inside the traced Flux/maxEigenvalue) runs and conserves."""
-    from exahype_tpu.backends.jax_backend import JAXPrinter
-    from exahype_tpu.models import srhd
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.backends.jax_backend import JAXPrinter
+    from exahype_jax.models import srhd
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
 
     flux, eig = srhd.srhd(dim=2, gamma=5.0 / 3.0)
     kb = build_fv_rusanov_kernel(
@@ -1323,8 +1230,8 @@ def test_euler_gravity_exact_momentum_and_energy_budget():
     grows as ρg·t EXACTLY and the energy as the time integral of m·g —
     both polynomial in t, so the space-time predictor integrates them
     exactly (machine-precision budget over many steps)."""
-    from exahype_tpu.models import euler
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.models import euler
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
 
     dim = 2
     gvec = (0.3, -9.81)
@@ -1362,8 +1269,8 @@ def test_euler_gravity_hydrostatic_residual_converges():
     """An isothermal hydrostatic atmosphere (p = p0·e^{−y/H}, ρ = p/c²
     with c² = gH) is a steady state; the discrete residual after a fixed
     time must shrink at the scheme's order with resolution."""
-    from exahype_tpu.models import euler
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.models import euler
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
 
     g0, H = 1.0, 1.0
     c2 = g0 * H
@@ -1402,8 +1309,8 @@ def test_euler_gravity_hydrostatic_residual_converges():
 def test_grhd_reduces_to_srhd_at_unit_lapse():
     """α ≡ 1, ∂α = 0: fluxes, eigenvalues, and a full ADER-DG run match
     the independent SRHD module."""
-    from exahype_tpu.models import grhd, srhd
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import grhd, srhd
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
 
     dim = 2
     rng = np.random.default_rng(3)
@@ -1435,8 +1342,8 @@ def test_grhd_hydrostatic_equilibrium_converges():
     (flux divergence balancing the geometric source)."""
     import jax
 
-    from exahype_tpu.models import grhd
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import grhd
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
 
     gamma = 5.0 / 3.0
     c2 = 0.25
@@ -1487,7 +1394,7 @@ def test_grhd_hydrostatic_equilibrium_converges():
 
 
 def test_grhd_causality_and_admissibility():
-    from exahype_tpu.models import grhd
+    from exahype_jax.models import grhd
 
     rng = np.random.default_rng(5)
     n = 64
@@ -1510,7 +1417,7 @@ def test_grhd_causality_and_admissibility():
 
 
 def test_grmhd_reduces_to_rmhd_at_unit_lapse():
-    from exahype_tpu.models import grmhd, rmhd
+    from exahype_jax.models import grmhd, rmhd
 
     rng = np.random.default_rng(8)
     n = 48
@@ -1546,8 +1453,8 @@ def test_grmhd_magnetized_tolman_equilibrium():
     conserved."""
     import jax
 
-    from exahype_tpu.models import grhd, grmhd
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import grhd, grmhd
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
 
     gamma = 5.0 / 3.0
     c2 = 0.25
@@ -1604,7 +1511,7 @@ def test_grmhd_magnetized_tolman_equilibrium():
 
 
 def test_grmhd_causality_and_admissibility():
-    from exahype_tpu.models import grmhd
+    from exahype_jax.models import grmhd
 
     rng = np.random.default_rng(12)
     n = 48
@@ -1631,7 +1538,7 @@ def test_grmhd_causality_and_admissibility():
 def test_grmhd_cfc_reduces_to_rmhd_and_grmhd():
     """α=ψ=1 recovers flat `rmhd`; ψ=1 recovers the lapse-only `grmhd`
     (fluxes, eigenvalues AND geometric sources)."""
-    from exahype_tpu.models import grmhd, grmhd_cfc, rmhd
+    from exahype_jax.models import grmhd, grmhd_cfc, rmhd
 
     rng = np.random.default_rng(11)
     n, dim = 48, 2
@@ -1683,7 +1590,7 @@ def test_grmhd_cfc_reduces_to_rmhd_and_grmhd():
 
 
 def test_grmhd_cfc_con2prim_roundtrip():
-    from exahype_tpu.models import grmhd_cfc
+    from exahype_jax.models import grmhd_cfc
 
     rng = np.random.default_rng(13)
     n = 48
@@ -1720,8 +1627,8 @@ def test_grmhd_cfc_magnetized_curved_equilibrium():
     scalar, and metric slots exactly frozen; D* conserved."""
     import jax
 
-    from exahype_tpu.models import grmhd_cfc
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import grmhd_cfc
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
 
     gamma = 5.0 / 3.0
     Bhat = 0.3
@@ -1774,58 +1681,11 @@ def test_grmhd_cfc_magnetized_curved_equilibrium():
     assert rate > 3.0, (errs, rate)
 
 
-def test_grmhd_cfc_fused_pallas_parity():
-    """The curved magnetized family runs on the fused Pallas predictor:
-    hat-map con2prim, row-scaled fluxes, geometric sources, and the
-    frozen-metric mask all inline at 1e-12 parity."""
-    from exahype_tpu.models import grmhd_cfc
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    GAMMA = 4.0 / 3.0
-    flux, eig = grmhd_cfc.grmhd_cfc(dim=2, gamma=GAMMA, iters=8)
-    cells = 4
-    solver = ADERDGSolver(
-        dim=2, order=2, n_vars=grmhd_cfc.n_vars(2), grid_shape=(cells, cells),
-        flux_fn=wrap_var_last(flux), max_eigenvalue_fn=wrap_var_last(eig),
-        dx=1.0 / cells, source_fn=grmhd_cfc.grmhd_cfc_source(2, gamma=GAMMA,
-                                                             iters=8),
-        dissipation_mask=grmhd_cfc.grmhd_cfc_dissipation_mask(2),
-    )
-    fused = PallasADERDG(solver, interpret=True)
-    coords = solver.nodes_meshgrid()
-    no_var = solver.state_shape[:2] + solver.state_shape[3:]
-    X = np.broadcast_to(np.squeeze(coords[0], solver.var_axis), no_var)
-    Y = np.broadcast_to(np.squeeze(coords[1], solver.var_axis), no_var)
-    rho = 1.0 + 0.2 * np.sin(2 * np.pi * (X + Y))
-    v = np.stack([0.2 * np.ones_like(X), -0.1 * np.ones_like(X),
-                  0.05 * np.ones_like(X)], -1)
-    B = np.stack([0.3 * np.ones_like(X), 0.15 * np.ones_like(X),
-                  -0.1 * np.ones_like(X)], -1)
-    alpha = 1.0 + 0.05 * np.cos(2 * np.pi * Y)
-    dalpha = np.stack(
-        [np.zeros_like(X), -0.05 * 2 * np.pi * np.sin(2 * np.pi * Y)], -1
-    )
-    psi = 1.0 + 0.04 * np.sin(2 * np.pi * X)
-    dpsi = np.stack(
-        [0.04 * 2 * np.pi * np.cos(2 * np.pi * X), np.zeros_like(X)], -1
-    )
-    u = jnp.asarray(np.moveaxis(np.asarray(grmhd_cfc.pack_state(
-        jnp.asarray(rho), jnp.asarray(v), jnp.asarray(0.8 * rho),
-        jnp.asarray(B), jnp.asarray(alpha), jnp.asarray(psi),
-        jnp.asarray(dalpha), jnp.asarray(dpsi), gamma=GAMMA,
-    )), -1, solver.var_axis))
-    dt = 1e-3
-    ref = np.asarray(solver.step(u, dt))
-    got = np.asarray(fused.step(u, dt))
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-14)
-
-
 # ---------------------------------------------------------------- GRHD-CFC
 
 
 def test_grhd_cfc_reduces_to_srhd_at_flat_metric():
-    from exahype_tpu.models import grhd_cfc, srhd
+    from exahype_jax.models import grhd_cfc, srhd
 
     rng = np.random.default_rng(3)
     n, dim = 48, 2
@@ -1854,7 +1714,7 @@ def test_grhd_cfc_reduces_to_srhd_at_flat_metric():
 def test_grhd_cfc_reduces_to_grhd_at_unit_conformal_factor():
     """ψ ≡ 1 recovers the independent lapse-only module (fluxes,
     eigenvalues, AND geometric sources)."""
-    from exahype_tpu.models import grhd, grhd_cfc
+    from exahype_jax.models import grhd, grhd_cfc
 
     rng = np.random.default_rng(5)
     n, dim = 48, 2
@@ -1892,8 +1752,8 @@ def test_grhd_cfc_curved_tolman_equilibrium():
     scheme's order, metric slots bitwise frozen, D* conserved."""
     import jax
 
-    from exahype_tpu.models import grhd, grhd_cfc
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import grhd, grhd_cfc
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
 
     gamma = 5.0 / 3.0
     c2 = 0.25
@@ -1952,8 +1812,8 @@ def test_grhd_cfc_3d_curved_tolman_equilibrium():
     equilibrium and the residual converges above the scheme's order."""
     import jax
 
-    from exahype_tpu.models import grhd, grhd_cfc
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import grhd, grhd_cfc
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
 
     gamma = 5.0 / 3.0
     c2 = 0.25
@@ -2010,8 +1870,8 @@ def test_grhd_cfc_schwarzschild_window_atmosphere():
     fluxes are nonzero; their divergence cancels the sources)."""
     import jax
 
-    from exahype_tpu.models import grhd, grhd_cfc
-    from exahype_tpu.models.aderdg import (
+    from exahype_jax.models import grhd, grhd_cfc
+    from exahype_jax.models.aderdg import (
         ADERDGSolver,
         make_dirichlet_fn,
         wrap_var_last,
@@ -2082,7 +1942,7 @@ def test_michel_oracle_integrals_and_branches():
     Bernoulli integrals are constant to rounding on both branches, the
     flow is subsonic outside the critical radius and supersonic inside,
     and the isotropic-coordinate Valencia speed is subluminal."""
-    from exahype_tpu.models import michel
+    from exahype_jax.models import michel
 
     Gamma, M, Rc = 4.0 / 3.0, 1.0, 8.0
     C1, C2, rho_c, u_c = michel.michel_constants(Rc, Gamma, M)
@@ -2109,8 +1969,8 @@ def test_michel_accretion_window_stationary():
     steps decays above the scheme's order."""
     import jax
 
-    from exahype_tpu.models import grhd_cfc, michel
-    from exahype_tpu.models.aderdg import (
+    from exahype_jax.models import grhd_cfc, michel
+    from exahype_jax.models.aderdg import (
         ADERDGSolver,
         make_dirichlet_fn,
         wrap_var_last,
@@ -2168,7 +2028,7 @@ def test_grhd_cfc_schwarzschild_causality_and_roundtrip():
     round-trips the packed state, the characteristic speed respects the
     conformal light cone λ ≤ αψ⁻², and the admissibility hook accepts
     physical states / rejects a negative conformal factor."""
-    from exahype_tpu.models import grhd_cfc
+    from exahype_jax.models import grhd_cfc
 
     rng = np.random.default_rng(7)
     n, dim = 48, 2
@@ -2219,48 +2079,6 @@ def _grmhd_lapse_blast_state(solver, grmhd):
     return jnp.asarray(np.moveaxis(Qv, -1, solver.var_axis))
 
 
-def test_grmhd_fused_pallas_parity():
-    """GRMHD runs on the fused Pallas predictor (interpret mode): the
-    con2prim, geometric source, and frozen-metric dissipation mask all
-    inline into the kernel body at 1e-12 parity."""
-    from exahype_tpu.models import grmhd
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    GAMMA = 4.0 / 3.0
-    flux, eig = grmhd.grmhd(dim=2, gamma=GAMMA, c_h=1.0, iters=8)
-    cells = 4
-    solver = ADERDGSolver(
-        dim=2, order=2, n_vars=grmhd.n_vars(2), grid_shape=(cells, cells),
-        flux_fn=wrap_var_last(flux), max_eigenvalue_fn=wrap_var_last(eig),
-        dx=1.0 / cells, source_fn=grmhd.grmhd_source(2),
-        dissipation_mask=grmhd.grmhd_dissipation_mask(2),
-    )
-    fused = PallasADERDG(solver, interpret=True)
-    coords = solver.nodes_meshgrid()
-    no_var = solver.state_shape[:2] + solver.state_shape[3:]
-    X = np.broadcast_to(np.squeeze(coords[0], solver.var_axis), no_var)
-    Y = np.broadcast_to(np.squeeze(coords[1], solver.var_axis), no_var)
-    rho = 1.0 + 0.2 * np.sin(2 * np.pi * (X + Y))
-    v = np.stack([0.3 * np.ones_like(X), -0.1 * np.ones_like(X),
-                  0.05 * np.ones_like(X)], -1)
-    B = np.stack([0.4 * np.ones_like(X), 0.2 * np.ones_like(X),
-                  -0.1 * np.ones_like(X)], -1)
-    alpha = 1.0 + 0.05 * np.cos(2 * np.pi * Y)
-    dalpha = np.stack(
-        [np.zeros_like(X), -0.05 * 2 * np.pi * np.sin(2 * np.pi * Y)], -1
-    )
-    u = jnp.asarray(np.moveaxis(np.asarray(grmhd.pack_state(
-        jnp.asarray(rho), jnp.asarray(v), jnp.asarray(0.8 * rho),
-        jnp.asarray(B), jnp.asarray(alpha), jnp.asarray(dalpha),
-        gamma=GAMMA,
-    )), -1, solver.var_axis))
-    dt = 1e-3
-    ref = np.asarray(solver.step(u, dt))
-    got = np.asarray(fused.step(u, dt))
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-14)
-
-
 def test_row_gathered_sharded_grmhd_matches_single_device():
     """The full production stack on the GR magnetized family: row-gathered
     limited GRMHD (con2prim detection, geometric sources in the fallback
@@ -2269,10 +2087,10 @@ def test_row_gathered_sharded_grmhd_matches_single_device():
     import jax
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.models import grmhd
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models.limiter import LimitedADERDG
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.models import grmhd
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models.limiter import LimitedADERDG
+    from exahype_jax.parallel import make_mesh
 
     GAMMA = 4.0 / 3.0
     flux, eig = grmhd.grmhd(dim=2, gamma=GAMMA, c_h=1.0, iters=8)
@@ -2314,7 +2132,7 @@ def test_elastic3d_het_flux_matches_homogeneous():
     """The 12-variable heterogeneous flux with constant material slots
     equals the homogeneous 9-variable flux on the evolved rows, with zero
     material rows — all three normals."""
-    from exahype_tpu.models.elastic import elastic3d_flux, elastic3d_het_flux
+    from exahype_jax.models.elastic import elastic3d_flux, elastic3d_het_flux
 
     rng = np.random.default_rng(0)
     Q9 = rng.normal(size=(4, 9))
@@ -2335,8 +2153,8 @@ def test_elastic3d_het_layered_ck():
     """3-D layered medium on the CK (linear) kernels with frozen material
     injection: finite, materials bitwise frozen, and parity with the
     Picard predictor at the superconvergent-difference level."""
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models.elastic import (
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models.elastic import (
         N_VARS_3D_HET,
         elastic3d_heterogeneous,
         plane_p_wave_3d,
@@ -2386,8 +2204,8 @@ def test_elastic3d_het_layered_ck():
 def test_elastic3d_het_free_surface_momentum():
     """Closed free-surface box on the heterogeneous 3-D system conserves
     total momentum exactly (traction-free walls carry zero momentum flux)."""
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models.elastic import (
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models.elastic import (
         N_VARS_3D_HET,
         elastic3d_free_surface_het,
         elastic3d_heterogeneous,

@@ -8,9 +8,9 @@ expects the reference's success banner.
 import pathlib
 import subprocess
 
-from exahype_tpu.backends.cpp_backend import CPPPrinter
-from exahype_tpu.backends.cpp_runtime import NATIVE_DIR
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.backends.cpp_backend import CPPPrinter
+from exahype_jax.backends.cpp_runtime import NATIVE_DIR
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 
 def test_native_correctness_binary(tmp_path):

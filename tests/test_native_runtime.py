@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.backends.cpp_runtime import NativeGridDriver, euler_sources
-from exahype_tpu.models.fv import build_fv_rusanov_kernel
-from exahype_tpu.parallel import GridSolver, PatchGrid
-from exahype_tpu.utils.config import KernelConfig
-from exahype_tpu.utils.errors import SemanticError
+from exahype_jax.backends.cpp_runtime import NativeGridDriver, euler_sources
+from exahype_jax.models.fv import build_fv_rusanov_kernel
+from exahype_jax.parallel import GridSolver, PatchGrid
+from exahype_jax.utils.config import KernelConfig
+from exahype_jax.utils.errors import SemanticError
 
 
 def euler_grid_state(grid, seed=0):
@@ -114,7 +114,7 @@ def test_native_reflective_walls(tmp_path):
     """Native wall mirror (sign-table hook) is element-identical to the
     Python grid layer with the Euler reflect hook, and a closed-box native
     run conserves mass/energy while wall pressure changes momentum."""
-    from exahype_tpu.models.aderdg import euler_reflect
+    from exahype_jax.models.aderdg import euler_reflect
 
     cfg = KernelConfig(
         dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=0, n_patches=4

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models import euler, navier_stokes as ns
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.utils.errors import SemanticError
+from exahype_jax.models import euler, navier_stokes as ns
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.utils.errors import SemanticError
 
 
 def make_ns_solver(cells=16, order=3, mu=1e-2, prandtl=0.7, dim=2):
@@ -194,7 +194,7 @@ def test_ns_sharded_matches_single_device():
     into collectives, so parity vs single device is 1e-12."""
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
 
     solver = make_ns_solver(cells=8, order=2, mu=0.02)
     rng = np.random.default_rng(9)
@@ -234,45 +234,10 @@ def _smooth_ns_state(solver):
     return jnp.asarray(np.moveaxis(Qv, -1, solver.var_axis))
 
 
-def test_ns_fused_pallas_parity():
-    """Navier–Stokes on the fused Pallas predictor (interpret mode): the
-    in-kernel gradient evaluation, viscous flux, and Gassner face penalty
-    match the XLA solver to 1e-12 — on the unrolled, iteration-looped,
-    and doubly-streamed kernel variants."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = make_ns_solver(cells=4, order=2, mu=0.02)
-    u = _smooth_ns_state(solver)
-    dt = 5e-4
-    ref = np.asarray(solver.step(u, dt))
-    for kw in ({}, {"picard_loop": True},
-               {"picard_loop": True, "slice_loop": True}):
-        fused = PallasADERDG(solver, interpret=True, **kw)
-        got = np.asarray(fused.step(u, dt))
-        np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-14,
-                                   err_msg=str(kw))
-
-
-def test_ns_fused_bfo_parity():
-    """boundary_faces_only (the bench fast path) also carries the viscous
-    terms: intra-tile and tile-boundary penalties match the XLA step."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = make_ns_solver(cells=8, order=2, mu=0.02)
-    u = _smooth_ns_state(solver)
-    dt = 5e-4
-    ref = np.asarray(solver.step(u, dt))
-    fused = PallasADERDG(solver, interpret=True, tile0=4,
-                         boundary_faces_only=True)
-    assert fused.boundary_faces_only
-    got = np.asarray(fused.step(u, dt))
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-14)
-
-
 def test_limited_ns_untroubled_equals_plain_step():
     """Limited viscous step with nothing troubled returns the DG candidate
     unchanged."""
-    from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+    from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
 
     solver = make_ns_solver(cells=8, order=2, mu=0.02)
     limited = LimitedADERDG(solver, admissible=euler_admissible(dim=2))
@@ -292,7 +257,7 @@ def test_limited_ns_all_troubled_conserves_and_decays():
     mass/momentum/energy to rounding (diffusive face fluxes telescope) and
     the shear mode still decays at ~the physical rate (ν dominates the
     first-order numerical diffusion at this μ)."""
-    from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+    from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
 
     mu = 0.05
     solver = make_ns_solver(cells=8, order=2, mu=mu)
@@ -351,7 +316,7 @@ def test_limited_ns_all_troubled_conserves_and_decays():
 def test_limited_ns_viscous_shock_stable():
     """A strong viscous shock tube under the limiter: finite, conservative,
     admissible — the ExaHyPE CompressibleNavierStokes shock configuration."""
-    from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+    from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
 
     solver = make_ns_solver(cells=12, order=3, mu=2e-3)
     limited = LimitedADERDG(solver, admissible=euler_admissible(dim=2))
@@ -379,7 +344,7 @@ def test_limited_ns_viscous_shock_stable():
     m0 = np.asarray(solver.total_mass(u))
     m1 = np.asarray(solver.total_mass(out))
     np.testing.assert_allclose(m1, m0, rtol=1e-12, atol=1e-13)
-    from exahype_tpu.models.limiter import euler_admissible as ea
+    from exahype_jax.models.limiter import euler_admissible as ea
     ok = ea(dim=2)(out, solver.var_axis)
     assert bool(np.asarray(ok).all())
 
@@ -505,14 +470,12 @@ def test_ns_outflow_walls_compact_support_parity():
 
 def test_viscous_guards():
     solver = make_ns_solver(cells=4, order=2)
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models.limiter import LimitedADERDG
 
     adm = lambda Q, va: jnp.ones(Q.shape[:va] + Q.shape[va + 1:], bool)
     with pytest.raises(SemanticError, match="gathered"):
         LimitedADERDG(solver, admissible=adm, troubled_capacity=4,
                       troubled_granularity="row")
-    with pytest.raises(SemanticError, match="Pallas"):
-        LimitedADERDG(solver, admissible=adm, subcell_pallas=True)
     f, e, vf, ve = ns.navier_stokes(dim=2)
     with pytest.raises(SemanticError, match="together"):
         ADERDGSolver(
@@ -520,7 +483,7 @@ def test_viscous_guards():
             flux_fn=wrap_var_last(f), max_eigenvalue_fn=wrap_var_last(e),
             visc_flux_fn=ns.wrap_visc_var_last(vf),
         )
-    from exahype_tpu.models.aderdg import euler_reflect, euler_reflect_flux
+    from exahype_jax.models.aderdg import euler_reflect, euler_reflect_flux
 
     # Round 4: viscous + walls is now supported (the former periodic-only
     # guard is gone) — construction succeeds and the wall machinery engages.

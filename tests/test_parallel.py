@@ -12,16 +12,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models import build_rusanov_kernel, euler
-from exahype_tpu.parallel import (
+from exahype_jax.models import build_rusanov_kernel, euler
+from exahype_jax.parallel import (
     GridSolver,
     PatchGrid,
     make_mesh,
     shard_state,
     state_sharding,
 )
-from exahype_tpu.utils.config import KernelConfig
-from exahype_tpu.utils.errors import SemanticError
+from exahype_jax.utils.config import KernelConfig
+from exahype_jax.utils.errors import SemanticError
 
 
 def make_grid(gx=4, gy=2, patch=4, halo=1, n_real=5, n_aux=5, boundary="periodic"):
@@ -165,107 +165,13 @@ def test_sharded_program_contains_collectives():
     ).lower(Qs, 1e-3)
     hlo = lowered.compile().as_text()
     assert "collective-permute" in hlo or "all-to-all" in hlo or "all-gather" in hlo, (
-        "sharded halo exchange should lower to ICI collectives"
+        "sharded halo exchange should lower to collectives"
     )
-
-
-def test_tpu_grid_solver_matches_aos_solver():
-    """Pallas/SoA-P full step == JAX/AoS full step on the same physics."""
-    import jax.numpy as jnp
-
-    from exahype_tpu.parallel import TpuPatchGrid
-
-    cfg = KernelConfig(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=8
-    )
-    aos_grid = PatchGrid(config=cfg, grid_shape=(4, 2))
-    tpu_grid = TpuPatchGrid(config=cfg, grid_shape=(4, 2))
-    kb = build_rusanov_kernel(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=8
-    )
-    aos_solver = GridSolver(aos_grid, kb, dx=0.1)
-    tpu_solver = GridSolver(
-        tpu_grid, kb, dx=0.1, backend="pallas", interpret=True, tile_patches=4
-    )
-
-    rng = np.random.default_rng(12)
-    aos_state = rng.uniform(0.1, 1.0, size=aos_grid.state_shape)
-    aos_state[..., 0] += 1.0
-    aos_state[..., 3] += 5.0
-    aos_state[..., 4] += 5.0
-    aos_state = jnp.asarray(aos_state)
-
-    ref = np.asarray(aos_solver.step(aos_state, 1e-3))
-    # Same state in SoA-P: flatten grid axes to the patch axis, convert.
-    batched = aos_grid.to_batched(aos_state)
-    tpu_state = tpu_grid.from_aos(batched)
-    out = np.asarray(tpu_grid.to_aos(tpu_solver.step(tpu_state, 1e-3)))
-    np.testing.assert_allclose(
-        out.reshape(ref.shape), np.asarray(aos_grid.to_batched(ref)).reshape(out.shape).reshape(ref.shape), atol=1e-13, rtol=0
-    )
-
-
-def test_tpu_grid_sharded_collectives():
-    """TpuPatchGrid halo exchange lowers to collectives when a grid axis is
-    sharded."""
-    import jax.numpy as jnp
-
-    from exahype_tpu.parallel import TpuPatchGrid
-
-    cfg = KernelConfig(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=16
-    )
-    grid = TpuPatchGrid(config=cfg, grid_shape=(8, 2))
-    mesh = make_mesh(8)
-    sharding = state_sharding(mesh, grid)
-    rng = np.random.default_rng(3)
-    Q = jnp.asarray(rng.normal(size=grid.state_shape))
-    Qs = jax.device_put(Q, sharding)
-    fn = jax.jit(grid.halo_fill, in_shardings=(sharding,), out_shardings=sharding)
-    hlo = fn.lower(Qs).compile().as_text()
-    assert "collective-permute" in hlo or "all-gather" in hlo
-    np.testing.assert_array_equal(np.asarray(fn(Qs)), np.asarray(grid.halo_fill(Q)))
-
-
-def test_shard_map_pallas_step_matches_unsharded():
-    """Explicit multi-chip Pallas path: shard_map + ppermute halo exchange
-    must reproduce the single-device solver step."""
-    from exahype_tpu.parallel import TpuPatchGrid
-    from exahype_tpu.parallel.shard import make_sharded_pallas_step
-
-    cfg = KernelConfig(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=16
-    )
-    grid = TpuPatchGrid(config=cfg, grid_shape=(8, 2))
-    kb = build_rusanov_kernel(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=16
-    )
-    solver = GridSolver(
-        grid, kb, dx=0.1, backend="pallas", interpret=True, tile_patches=2
-    )
-    rng = np.random.default_rng(21)
-    aos = rng.uniform(0.1, 1.0, size=(16, 6, 6, 10))
-    aos[..., 0] += 1.0
-    aos[..., 3] += 5.0
-    aos[..., 4] += 5.0
-    Q = grid.from_aos(jnp.asarray(aos))
-
-    ref = np.asarray(solver.step(Q, 1e-3))
-
-    mesh = make_mesh(8)
-    step, sharding = make_sharded_pallas_step(
-        kb, grid, mesh, interpret=True, tile_patches=2
-    )
-    Qs = jax.device_put(Q, sharding)
-    out = np.asarray(step(Qs, 1e-3))
-    np.testing.assert_array_equal(out, ref)
-    hlo = step.lower(Qs, 1e-3).compile().as_text()
-    assert "collective-permute" in hlo
 
 
 def test_two_axis_mesh_sharding():
-    """2-D device mesh (ICI x DCN style): two grid axes sharded over two
-    named mesh axes; the GSPMD-partitioned step still matches exactly."""
+    """2-D device mesh: two grid axes sharded over two named mesh axes;
+    the GSPMD-partitioned step still matches exactly."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
     grid = make_grid(gx=4, gy=2)
@@ -274,9 +180,9 @@ def test_two_axis_mesh_sharding():
     ref = np.asarray(jax.jit(solver.step)(Q, 1e-3))
 
     devices = np.array(jax.devices()[:8]).reshape(4, 2)
-    mesh = Mesh(devices, ("ici", "dcn"))
+    mesh = Mesh(devices, ("x", "y"))
     ndim = len(grid.state_shape)
-    spec = PartitionSpec("ici", "dcn", *([None] * (ndim - 2)))
+    spec = PartitionSpec("x", "y", *([None] * (ndim - 2)))
     sharding = NamedSharding(mesh, spec)
     Qs = jax.device_put(Q, sharding)
     stepped = jax.jit(solver.step, in_shardings=(sharding, None), out_shardings=sharding)
@@ -292,41 +198,32 @@ def test_make_mesh_multi_axis_helpers():
     Q = euler_init(grid, seed=11)
     ref = np.asarray(jax.jit(solver.step)(Q, 1e-3))
 
-    mesh = make_mesh(shape=(4, 2), axis_names=("ici", "dcn"))
-    sharding = state_sharding(mesh, grid, axis_name=("ici", "dcn"))
+    mesh = make_mesh(shape=(4, 2), axis_names=("x", "y"))
+    sharding = state_sharding(mesh, grid, axis_name=("x", "y"))
     Qs = jax.device_put(Q, sharding)
     stepped = jax.jit(solver.step, in_shardings=(sharding, None), out_shardings=sharding)
     np.testing.assert_array_equal(np.asarray(stepped(Qs, 1e-3)), ref)
 
 
 def test_sharded_pallas_aderdg_matches_single_device():
-    """The fused-Pallas ADER-DG step under shard_map (axis-0 sharded,
+    """The fused Pallas cell stage under shard_map (axis-0 sharded,
     ppermute edge exchange) matches the unsharded fused step."""
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.models.aderdg_triton import TritonADERDG
+    from exahype_jax.parallel.shard import make_sharded_xla_aderdg_step
 
     flux, eig = euler_physics(dim=3, n_real=5)
     solver = ADERDGSolver(
-        dim=3, order=2, n_vars=5, grid_shape=(8, 8, 128), flux_fn=flux,
+        dim=3, order=2, n_vars=5, grid_shape=(8, 4, 4), flux_fn=flux,
         max_eigenvalue_fn=eig, dx=1.0 / 8,
     )
-    rng = np.random.default_rng(4)
-    no_var = (
-        solver.state_shape[: solver.var_axis]
-        + solver.state_shape[solver.var_axis + 1 :]
-    )
-    rho = 1.0 + 0.2 * rng.random(no_var)
-    comps = [rho, rho, 0.5 * rho, 0.25 * rho, 5.0 + 0.66 * rho]
-    Q0 = jnp.asarray(np.stack(comps, axis=solver.var_axis))
-
-    ref = np.asarray(
-        PallasADERDG(solver, interpret=True, tile0=2).step(Q0, 1e-3)
-    )
+    Q0 = _aderdg_euler_state(solver)
+    ref = np.asarray(TritonADERDG(solver, interpret=True).step(Q0, 1e-3))
 
     mesh = make_mesh(8)
-    step, sharding = make_sharded_aderdg_step(
-        solver, mesh, interpret=True, tile0=1
+    step, sharding = make_sharded_xla_aderdg_step(
+        solver, mesh,
+        cell_stage=lambda s: TritonADERDG(s, interpret=True).cell_stage,
     )
     Qs = jax.device_put(Q0, sharding)
     got = np.asarray(jax.jit(step)(Qs, 1e-3))
@@ -349,19 +246,17 @@ def _aderdg_euler_state(solver, seed=4):
 
 
 def test_sharded_aderdg_reflective_matches_single_device():
-    """Reflective walls on the sharded fused path: fusion auto-disables, so
-    every axis goes through the epilogue; the sharded axis-0 face stage must
-    apply wall ghosts only on the first/last shard and ppermute elsewhere,
-    and interior axes must use the LOCAL wall-aware face stage (they are
-    unsharded).  Guards the round-1 advisory bug where _edge_shift was
-    applied to every epilogue axis (max error 0.128 vs the base solver)."""
-    from exahype_tpu.models.aderdg import (
+    """Reflective walls on the sharded step: the sharded axis-0 face stage
+    must apply wall ghosts only on the first/last shard and ppermute
+    elsewhere, and interior axes must use the LOCAL wall-aware face stage
+    (they are unsharded)."""
+    from exahype_jax.models.aderdg import (
         ADERDGSolver,
         euler_physics,
         euler_reflect,
         euler_reflect_flux,
     )
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step
+    from exahype_jax.parallel.shard import make_sharded_xla_aderdg_step
 
     flux, eig = euler_physics(dim=3, n_real=5)
     solver = ADERDGSolver(
@@ -373,7 +268,7 @@ def test_sharded_aderdg_reflective_matches_single_device():
     ref = np.asarray(jax.jit(solver.step)(Q0, 1e-3))
 
     mesh = make_mesh(8)
-    step, sharding = make_sharded_aderdg_step(solver, mesh, interpret=True, tile0=1)
+    step, sharding = make_sharded_xla_aderdg_step(solver, mesh)
     Qs = jax.device_put(Q0, sharding)
     got = np.asarray(jax.jit(step)(Qs, 1e-3))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
@@ -382,10 +277,10 @@ def test_sharded_aderdg_reflective_matches_single_device():
 def test_sharded_aderdg_outflow_and_farfield_match_single_device():
     """The wall plumbing is boundary-agnostic: outflow and farfield ghost
     hooks flow through the same per-shard wall gating as reflective, so
-    the sharded fused path matches single-device for both."""
-    from exahype_tpu.models import euler
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step
+    the sharded step matches single-device for both."""
+    from exahype_jax.models import euler
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.parallel.shard import make_sharded_xla_aderdg_step
 
     flux, eig = euler_physics(dim=3, n_real=5)
     ff = (1.0, 2.0, 0.0, 0.0, 1.0 / (euler.GAMMA - 1) + 2.0)
@@ -400,38 +295,11 @@ def test_sharded_aderdg_outflow_and_farfield_match_single_device():
         Q0 = _aderdg_euler_state(solver)
         ref = np.asarray(jax.jit(solver.step)(Q0, 1e-3))
         mesh = make_mesh(8)
-        step, sharding = make_sharded_aderdg_step(
-            solver, mesh, interpret=True, tile0=1
-        )
+        step, sharding = make_sharded_xla_aderdg_step(solver, mesh)
         Qs = jax.device_put(Q0, sharding)
         got = np.asarray(jax.jit(step)(Qs, 1e-3))
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12,
                                    err_msg=str(kw))
-
-
-def test_sharded_aderdg_unfused_periodic_matches_single_device():
-    """fuse_interior_riemann=False (the documented setting when interior
-    grid axes are sharded) forwarded through make_sharded_aderdg_step: the
-    interior-axis epilogues must wrap locally, not ppermute (round-1
-    advisory: 2.2e-3 error)."""
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step
-
-    flux, eig = euler_physics(dim=3, n_real=5)
-    solver = ADERDGSolver(
-        dim=3, order=2, n_vars=5, grid_shape=(8, 4, 4), flux_fn=flux,
-        max_eigenvalue_fn=eig, dx=1.0 / 8,
-    )
-    Q0 = _aderdg_euler_state(solver, seed=7)
-    ref = np.asarray(jax.jit(solver.step)(Q0, 1e-3))
-
-    mesh = make_mesh(8)
-    step, sharding = make_sharded_aderdg_step(
-        solver, mesh, interpret=True, tile0=1, fuse_interior_riemann=False
-    )
-    Qs = jax.device_put(Q0, sharding)
-    got = np.asarray(jax.jit(step)(Qs, 1e-3))
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
 
 
 def test_fv_wall_conserves_mass_and_energy():
@@ -439,8 +307,8 @@ def test_fv_wall_conserves_mass_and_energy():
     negated): zero mass/energy flux through the wall, so both are conserved
     to rounding; the plain mirror (no hook) is only a symmetry boundary and
     leaks mass (round-1 advisory)."""
-    from exahype_tpu.models.aderdg import euler_reflect
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.models.aderdg import euler_reflect
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
 
     cfg = KernelConfig(
         dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=0, n_patches=4
@@ -485,328 +353,34 @@ def test_fv_wall_conserves_mass_and_energy():
     assert abs(leaked[0] - before[0]) > 1e-6
 
 
-def test_sharded_pallas_reflective_matches_single_device():
-    """Reflective walls through the explicit shard_map FV path: the sharded
-    axis-0 wall mirror must apply only on the first/last shard."""
-    from exahype_tpu.models.aderdg import euler_reflect
-    from exahype_tpu.parallel import TpuPatchGrid
-    from exahype_tpu.parallel.shard import make_sharded_pallas_step
-
-    cfg = KernelConfig(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=16
-    )
-    grid = TpuPatchGrid(
-        config=cfg, grid_shape=(8, 2), boundary="reflective",
-        reflect_fn=euler_reflect(2),
-    )
-    kb = build_rusanov_kernel(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=16
-    )
-    solver = GridSolver(
-        grid, kb, dx=0.1, backend="pallas", interpret=True, tile_patches=2
-    )
-    rng = np.random.default_rng(23)
-    aos = rng.uniform(0.1, 1.0, size=(16, 6, 6, 10))
-    aos[..., 0] += 1.0
-    aos[..., 1] += 0.5
-    aos[..., 3] += 5.0
-    aos[..., 4] += 5.0
-    Q = grid.from_aos(jnp.asarray(aos))
-
-    ref = np.asarray(solver.step(Q, 1e-3))
-
-    mesh = make_mesh(8)
-    step, sharding = make_sharded_pallas_step(
-        kb, grid, mesh, interpret=True, tile_patches=2
-    )
-    Qs = jax.device_put(Q, sharding)
-    out = np.asarray(step(Qs, 1e-3))
-    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-13)
-
-
-def test_two_axis_sharded_pallas_step_hierarchical_halo():
-    """Grid axes 0 AND 1 sharded over a (4,2) ICI x DCN mesh through the
-    hierarchical halo schedule (bulk round both axes concurrently + tiny
-    corner round): matches the single-device step exactly, and the compiled
-    program carries collectives on BOTH mesh axes."""
-    import re
-
-    from exahype_tpu.parallel import TpuPatchGrid
-    from exahype_tpu.parallel.shard import make_sharded_pallas_step_2axis
-
-    cfg = KernelConfig(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=32
-    )
-    grid = TpuPatchGrid(config=cfg, grid_shape=(8, 4))
-    kb = build_rusanov_kernel(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=32
-    )
-    solver = GridSolver(
-        grid, kb, dx=0.1, backend="pallas", interpret=True, tile_patches=4
-    )
-    rng = np.random.default_rng(31)
-    aos = rng.uniform(0.1, 1.0, size=(32, 6, 6, 10))
-    aos[..., 0] += 1.0
-    aos[..., 3] += 5.0
-    aos[..., 4] += 5.0
-    Q = grid.from_aos(jnp.asarray(aos))
-    ref = np.asarray(solver.step(Q, 1e-3))
-
-    mesh = make_mesh(shape=(4, 2), axis_names=("ici", "dcn"))
-    step, sharding = make_sharded_pallas_step_2axis(
-        kb, grid, mesh, interpret=True, tile_patches=2
-    )
-    Qs = jax.device_put(Q, sharding)
-    out = np.asarray(step(Qs, 1e-3))
-    np.testing.assert_array_equal(out, ref)
-
-    hlo = step.lower(Qs, 1e-3).compile().as_text()
-    pairs = set(re.findall(r"source_target_pairs=\{[^}]*\}", hlo))
-    # Bulk exchanges on two distinct mesh axes + the corner round: at least
-    # two distinct ring permutations must appear.
-    assert hlo.count("collective-permute") >= 6
-    assert len(pairs) >= 2, pairs
-
-
-def test_bf16_wire_format_halo_exchange():
-    """Mixed-precision communication: wire_dtype=bf16 halves the ICI bytes
-    of every cross-chip edge slab (asserted on the compiled HLO) while the
-    compute path stays full precision.  With bf16-representable state the
-    step is bit-identical to the full-precision wire; with general state
-    the quantization error is bounded by bf16 eps on the exchanged ghosts
-    only."""
-    from exahype_tpu.parallel import TpuPatchGrid
-    from exahype_tpu.parallel.shard import make_sharded_pallas_step
-
-    cfg = KernelConfig(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=16
-    )
-    grid = TpuPatchGrid(config=cfg, grid_shape=(8, 2))
-    kb = build_rusanov_kernel(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=16
-    )
-    rng = np.random.default_rng(33)
-    aos = rng.uniform(0.1, 1.0, size=(16, 6, 6, 10))
-    aos[..., 0] += 1.0
-    aos[..., 3] += 5.0
-    aos[..., 4] += 5.0
-    mesh = make_mesh(8)
-
-    step_full, sharding = make_sharded_pallas_step(
-        kb, grid, mesh, interpret=True, tile_patches=2
-    )
-    step_bf16, _ = make_sharded_pallas_step(
-        kb, grid, mesh, wire_dtype=jnp.bfloat16, interpret=True, tile_patches=2
-    )
-
-    # 1. bf16-representable state -> bitwise identical step.
-    aos_rep = np.asarray(
-        jnp.asarray(aos, jnp.float64).astype(jnp.bfloat16).astype(jnp.float64)
-    )
-    Q_rep = jax.device_put(grid.from_aos(jnp.asarray(aos_rep)), sharding)
-    np.testing.assert_array_equal(
-        np.asarray(step_bf16(Q_rep, 1e-3)), np.asarray(step_full(Q_rep, 1e-3))
-    )
-
-    # 2. General state: the wire quantization perturbs only ghost-derived
-    # cells, with a bf16-eps-scale bound.
-    Q = jax.device_put(grid.from_aos(jnp.asarray(aos)), sharding)
-    out_full = np.asarray(step_full(Q, 1e-3))
-    out_bf16 = np.asarray(step_bf16(Q, 1e-3))
-    diff = np.abs(out_bf16 - out_full)
-    assert diff.max() > 0, "bf16 wire should differ on non-representable data"
-    assert diff.max() < 1e-2 * np.abs(out_full).max()
-
-    # 3. The collective payload really is bf16 on the wire.
-    hlo = step_bf16.lower(Q, 1e-3).compile().as_text()
-    assert "collective-permute" in hlo
-    assert "bf16" in hlo.split("collective-permute")[1][:200] or "bf16" in hlo
-
-
 def test_bf16_wire_sharded_aderdg():
     """wire_dtype on the ADER-DG edge exchange: close to the full-precision
     wire (the faces are computed quantities, so the bound is bf16-relative)
     and the collective payload is bf16 in the compiled program."""
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.parallel.shard import make_sharded_xla_aderdg_step
 
     flux, eig = euler_physics(dim=3, n_real=5)
     solver = ADERDGSolver(
-        dim=3, order=2, n_vars=5, grid_shape=(8, 8, 128), flux_fn=flux,
+        dim=3, order=2, n_vars=5, grid_shape=(8, 4, 4), flux_fn=flux,
         max_eigenvalue_fn=eig, dx=1.0 / 8,
     )
     Q0 = _aderdg_euler_state(solver)
     mesh = make_mesh(8)
-    step_full, sharding = make_sharded_aderdg_step(
-        solver, mesh, interpret=True, tile0=1
-    )
-    step_bf16, _ = make_sharded_aderdg_step(
-        solver, mesh, interpret=True, tile0=1, wire_dtype=jnp.bfloat16
-    )
+    step_full, sharding = make_sharded_xla_aderdg_step(solver, mesh)
+    step_bf16, _ = make_sharded_xla_aderdg_step(solver, mesh, wire_dtype=jnp.bfloat16)
     Qs = jax.device_put(Q0, sharding)
     ref = np.asarray(jax.jit(step_full)(Qs, 1e-3))
     got = np.asarray(jax.jit(step_bf16)(Qs, 1e-3))
     assert np.abs(got - ref).max() < 1e-2 * np.abs(ref).max()
     hlo = jax.jit(step_bf16).lower(Qs, 1e-3).compile().as_text()
     assert "collective-permute" in hlo and "bf16" in hlo
-
-
-def test_bf16_wire_two_axis_hierarchical():
-    """wire_dtype on the 2-axis (ICI x DCN) hierarchical schedule: bounded
-    perturbation vs the full-precision wire, bf16 collective in the HLO."""
-    from jax.sharding import Mesh
-
-    from exahype_tpu.parallel import TpuPatchGrid
-    from exahype_tpu.parallel.shard import make_sharded_pallas_step_2axis
-
-    cfg = KernelConfig(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=32
-    )
-    grid = TpuPatchGrid(config=cfg, grid_shape=(8, 4))
-    kb = build_rusanov_kernel(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=5, n_patches=32
-    )
-    rng = np.random.default_rng(44)
-    aos = rng.uniform(0.1, 1.0, size=(32, 6, 6, 10))
-    aos[..., 0] += 1.0
-    aos[..., 3] += 5.0
-    aos[..., 4] += 5.0
-    Q = grid.from_aos(jnp.asarray(aos))
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("ici", "dcn"))
-
-    step_full, sharding = make_sharded_pallas_step_2axis(
-        kb, grid, mesh, interpret=True, tile_patches=2
-    )
-    step_bf16, _ = make_sharded_pallas_step_2axis(
-        kb, grid, mesh, wire_dtype=jnp.bfloat16, interpret=True, tile_patches=2
-    )
-    Qs = jax.device_put(Q, sharding)
-    ref = np.asarray(step_full(Qs, 1e-3))
-    got = np.asarray(step_bf16(Qs, 1e-3))
-    assert np.abs(got - ref).max() < 1e-2 * np.abs(ref).max()
-    hlo = step_bf16.lower(Qs, 1e-3).compile().as_text()
-    assert "collective-permute" in hlo and "bf16" in hlo
-
-
-def test_two_axis_sharded_aderdg_matches_single_device():
-    """VERDICT r2 item 4: the flagship ADER-DG over an ICI x DCN 2-axis
-    mesh (grid axes 0 AND 1 sharded, fused interior Riemann restricted to
-    the remaining whole axis) matches the unsharded fused step to 1e-12,
-    incl. the face-flux contract."""
-    from jax.sharding import Mesh
-
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step_2axis
-
-    flux, eig = euler_physics(dim=3, n_real=5)
-    solver = ADERDGSolver(
-        dim=3, order=2, n_vars=5, grid_shape=(8, 4, 128), flux_fn=flux,
-        max_eigenvalue_fn=eig, dx=1.0 / 8,
-    )
-    Q0 = _aderdg_euler_state(solver)
-    ref_new, ref_fluxes = PallasADERDG(
-        solver, interpret=True, tile0=2, epilogue_axes=(0, 1)
-    ).step(Q0, 1e-3, return_face_fluxes=True)
-
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("ici", "dcn"))
-    step, sharding = make_sharded_aderdg_step_2axis(
-        solver, mesh, interpret=True, tile0=1, return_face_fluxes=True
-    )
-    Qs = jax.device_put(Q0, sharding)
-    got_new, got_fluxes = jax.jit(step)(Qs, 1e-3)
-    np.testing.assert_allclose(
-        np.asarray(got_new), np.asarray(ref_new), rtol=0, atol=1e-12
-    )
-    for a, b in zip(got_fluxes, ref_fluxes):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-12
-        )
-    # Also vs the DEFAULT-fusion unsharded step (epilogue_axes override must
-    # not change the numbers, only where the work happens).
-    base = np.asarray(PallasADERDG(solver, interpret=True, tile0=2).step(Q0, 1e-3))
-    np.testing.assert_allclose(np.asarray(got_new), base, rtol=0, atol=1e-12)
-    hlo = jax.jit(step).lower(Qs, 1e-3).compile().as_text()
-    assert "collective-permute" in hlo
-
-
-def test_two_axis_sharded_aderdg_bf16_wire():
-    from jax.sharding import Mesh
-
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step_2axis
-
-    flux, eig = euler_physics(dim=3, n_real=5)
-    solver = ADERDGSolver(
-        dim=3, order=2, n_vars=5, grid_shape=(8, 4, 128), flux_fn=flux,
-        max_eigenvalue_fn=eig, dx=1.0 / 8,
-    )
-    Q0 = _aderdg_euler_state(solver)
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("ici", "dcn"))
-    step_full, sharding = make_sharded_aderdg_step_2axis(
-        solver, mesh, interpret=True, tile0=1
-    )
-    step_bf16, _ = make_sharded_aderdg_step_2axis(
-        solver, mesh, interpret=True, tile0=1, wire_dtype=jnp.bfloat16
-    )
-    Qs = jax.device_put(Q0, sharding)
-    ref = np.asarray(jax.jit(step_full)(Qs, 1e-3))
-    got = np.asarray(jax.jit(step_bf16)(Qs, 1e-3))
-    assert np.abs(got - ref).max() < 1e-2 * np.abs(ref).max()
-    hlo = jax.jit(step_bf16).lower(Qs, 1e-3).compile().as_text()
-    assert "collective-permute" in hlo and "bf16" in hlo
-
-
-@pytest.mark.parametrize("boundary", ["reflective", "outflow"])
-def test_two_axis_sharded_aderdg_walls_match_single_device(boundary):
-    """Round 4 (VERDICT item 10): wall domains on the 2-axis ICI x DCN
-    mesh — both sharded axes gate their wall ghosts to the wall-owning
-    shards; matches the unsharded boundary-aware fused step to 1e-12,
-    including the face-flux contract."""
-    from jax.sharding import Mesh
-
-    from exahype_tpu.models.aderdg import (
-        ADERDGSolver,
-        euler_physics,
-        euler_reflect,
-        euler_reflect_flux,
-    )
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step_2axis
-
-    flux, eig = euler_physics(dim=3, n_real=5)
-    kw = {}
-    if boundary == "reflective":
-        kw = dict(reflect_fn=euler_reflect(3),
-                  reflect_flux_fn=euler_reflect_flux(3))
-    solver = ADERDGSolver(
-        dim=3, order=2, n_vars=5, grid_shape=(8, 4, 8), flux_fn=flux,
-        max_eigenvalue_fn=eig, dx=1.0 / 8, boundary=boundary, **kw,
-    )
-    Q0 = _aderdg_euler_state(solver)
-    ref_new, ref_fluxes = PallasADERDG(
-        solver, interpret=True, tile0=2, epilogue_axes=(0, 1)
-    ).step(Q0, 1e-3, return_face_fluxes=True)
-
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("ici", "dcn"))
-    step, sharding = make_sharded_aderdg_step_2axis(
-        solver, mesh, interpret=True, tile0=1, return_face_fluxes=True
-    )
-    Qs = jax.device_put(Q0, sharding)
-    got_new, got_fluxes = jax.jit(step)(Qs, 1e-3)
-    np.testing.assert_allclose(
-        np.asarray(got_new), np.asarray(ref_new), rtol=0, atol=1e-12
-    )
-    for a, b in zip(got_fluxes, ref_fluxes):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-12
-        )
 
 
 def _dirichlet_wall_solver(grid_shape=(8, 4, 8)):
     """3-D Euler box with SPATIALLY-VARYING prescribed wall rows (the
     variation is what exercises the per-shard row slicing)."""
-    from exahype_tpu.models.aderdg import (
+    from exahype_jax.models.aderdg import (
         ADERDGSolver,
         euler_physics,
         make_dirichlet_fn,
@@ -831,63 +405,26 @@ def _dirichlet_wall_solver(grid_shape=(8, 4, 8)):
     )
 
 
-def test_two_axis_sharded_aderdg_dirichlet_walls_match_single_device():
-    """Round 5: the 2-axis dirichlet hole is closed — the globally
-    prescribed wall rows are dynamic-sliced to each shard's window along
-    BOTH sharded transverse axes; matches the unsharded boundary-aware
-    fused step to 1e-12 including the face-flux contract."""
-    from jax.sharding import Mesh
-
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step_2axis
-
-    solver = _dirichlet_wall_solver()
-    Q0 = _aderdg_euler_state(solver)
-    ref_new, ref_fluxes = PallasADERDG(
-        solver, interpret=True, tile0=2, epilogue_axes=(0, 1)
-    ).step(Q0, 1e-3, return_face_fluxes=True)
-
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("ici", "dcn"))
-    step, sharding = make_sharded_aderdg_step_2axis(
-        solver, mesh, interpret=True, tile0=1, return_face_fluxes=True
-    )
-    Qs = jax.device_put(Q0, sharding)
-    got_new, got_fluxes = jax.jit(step)(Qs, 1e-3)
-    np.testing.assert_allclose(
-        np.asarray(got_new), np.asarray(ref_new), rtol=0, atol=1e-12
-    )
-    for a, b in zip(got_fluxes, ref_fluxes):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=0, atol=1e-12
-        )
-
-
 def test_sharded_aderdg_dirichlet_transverse_wall_matches():
-    """Round 5 (1-axis flavour): a dirichlet wall on an UNSHARDED axis
-    while grid axis 0 is sharded — the prescribed rows span the sharded
-    axis and are sliced per shard."""
+    """A dirichlet wall on an UNSHARDED axis while grid axis 0 is sharded —
+    the prescribed rows span the sharded axis and are sliced per shard."""
     from jax.sharding import Mesh
 
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step
+    from exahype_jax.parallel.shard import make_sharded_xla_aderdg_step
 
     solver = dataclasses.replace(_dirichlet_wall_solver(), wall_axes=(1,))
     Q0 = _aderdg_euler_state(solver)
-    ref = np.asarray(
-        PallasADERDG(solver, interpret=True, tile0=2).step(Q0, 1e-3)
-    )
+    ref = np.asarray(jax.jit(solver.step)(Q0, 1e-3))
     mesh = Mesh(np.array(jax.devices()[:8]), ("patches",))
-    step, sharding = make_sharded_aderdg_step(
-        solver, mesh, interpret=True, tile0=1
-    )
+    step, sharding = make_sharded_xla_aderdg_step(solver, mesh)
     Qs = jax.device_put(Q0, sharding)
     got = np.asarray(jax.jit(step)(Qs, 1e-3))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
 
 
 def _noslip_ns_solver(cells=8, order=2, dim=2):
-    from exahype_tpu.models import navier_stokes as ns
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models import navier_stokes as ns
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
 
     f, e, vf, ve = ns.navier_stokes(dim=dim, mu=1e-2)
     return ADERDGSolver(
@@ -913,66 +450,29 @@ def _ns_state(solver, seed=2):
     return jnp.asarray(np.moveaxis(Qv, -1, solver.var_axis))
 
 
-def test_fused_viscous_walls_match_base_solver():
-    """Round 5: the fused predictor now emits the viscous-only face
-    projections, so no-slip (viscous) walls on the fused path reproduce
-    the base solver's advective/viscous wall split to 1e-12."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = _noslip_ns_solver()
-    Q0 = _ns_state(solver)
-    want = np.asarray(solver.step(Q0, 1e-3))
-    got = np.asarray(
-        PallasADERDG(solver, interpret=True, tile0=2).step(Q0, 1e-3)
-    )
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
-
-
-def test_two_axis_sharded_aderdg_viscous_walls_match_base_solver():
-    """Round 5: the 2-axis viscous-wall hole is closed — the per-shard
-    fused kernel emits fv_lo/fv_hi and the wall face stage applies the
-    advective/viscous split; matches the (validated) base solver."""
-    from jax.sharding import Mesh
-
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step_2axis
-
-    solver = _noslip_ns_solver()
-    Q0 = _ns_state(solver)
-    want = np.asarray(solver.step(Q0, 1e-3))
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(4, 2), ("ici", "dcn"))
-    step, sharding = make_sharded_aderdg_step_2axis(
-        solver, mesh, interpret=True, tile0=1
-    )
-    Qs = jax.device_put(Q0, sharding)
-    got = np.asarray(jax.jit(step)(Qs, 1e-3))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
-
-
 def test_sharded_aderdg_viscous_walls_match_base_solver():
-    """Round 5 (1-axis flavour of the viscous-wall fix)."""
+    """No-slip viscous walls on the sharded step match the base solver."""
     from jax.sharding import Mesh
 
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step
+    from exahype_jax.parallel.shard import make_sharded_xla_aderdg_step
 
     solver = _noslip_ns_solver()
     Q0 = _ns_state(solver)
     want = np.asarray(solver.step(Q0, 1e-3))
     mesh = Mesh(np.array(jax.devices()[:8]), ("patches",))
-    step, sharding = make_sharded_aderdg_step(
-        solver, mesh, interpret=True, tile0=1
-    )
+    step, sharding = make_sharded_xla_aderdg_step(solver, mesh)
     Qs = jax.device_put(Q0, sharding)
     got = np.asarray(jax.jit(step)(Qs, 1e-3))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
 
 def test_sharded_aderdg_high_order_p5():
-    """The sharded fused step is order-generic: at p5 the shard_mapped
-    streamed predictor (picard_loop auto-on) matches the unsharded fused
-    step on the 8-device mesh."""
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-    from exahype_tpu.parallel.shard import make_sharded_aderdg_step
+    """The sharded fused step is order-generic: at p5 (node axes padded to
+    8) the shard_mapped kernel matches the unsharded fused step on the
+    8-device mesh."""
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.models.aderdg_triton import TritonADERDG
+    from exahype_jax.parallel.shard import make_sharded_xla_aderdg_step
 
     flux, eig = euler_physics(dim=2, n_real=4)
     solver = ADERDGSolver(
@@ -987,13 +487,95 @@ def test_sharded_aderdg_high_order_p5():
     rho = 1.0 + 0.2 * rng.random(no_var)
     comps = [rho, rho, 0.5 * rho, 5.0 + 0.66 * rho]
     Q0 = jnp.asarray(np.stack(comps, axis=solver.var_axis))
-    fused = PallasADERDG(solver, interpret=True, tile0=1)
-    assert fused.picard_loop is None and fused.slice_loop is None
-    ref = np.asarray(fused.step(Q0, 1e-3))
+    ref = np.asarray(TritonADERDG(solver, interpret=True).step(Q0, 1e-3))
     mesh = make_mesh(8)
-    step, sharding = make_sharded_aderdg_step(
-        solver, mesh, interpret=True, tile0=1
+    step, sharding = make_sharded_xla_aderdg_step(
+        solver, mesh,
+        cell_stage=lambda s: TritonADERDG(s, interpret=True).cell_stage,
     )
     Qs = jax.device_put(Q0, sharding)
     got = np.asarray(jax.jit(step)(Qs, 1e-3))
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+
+
+def _euler2d_solver(boundary="periodic", grid=(8, 4)):
+    from exahype_jax.models.aderdg import (
+        ADERDGSolver,
+        euler_physics,
+        euler_reflect,
+        euler_reflect_flux,
+    )
+
+    flux, eig = euler_physics(dim=2, n_real=4)
+    walls = {}
+    if boundary == "reflective":
+        walls = dict(boundary="reflective", reflect_fn=euler_reflect(2),
+                     reflect_flux_fn=euler_reflect_flux(2))
+    solver = ADERDGSolver(
+        dim=2, order=2, n_vars=4, grid_shape=grid, flux_fn=flux,
+        max_eigenvalue_fn=eig, dx=1.0 / grid[0], **walls,
+    )
+    rng = np.random.default_rng(33)
+    no_var = (solver.state_shape[: solver.var_axis]
+              + solver.state_shape[solver.var_axis + 1 :])
+    rho = 1.0 + 0.2 * rng.random(no_var)
+    comps = [rho, 0.4 * rho, 0.5 * rho, 5.0 + 0.66 * rho]
+    return solver, jnp.asarray(np.stack(comps, axis=solver.var_axis))
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "reflective"])
+def test_bf16_wire_format_halo_exchange(boundary):
+    """Mixed-precision communication: wire_dtype=bf16 on the sharded step's
+    axis-0 edge exchange stays within a bf16-relative bound of the
+    full-precision wire (the exchanged faces are computed quantities; wall
+    ghosts are local and never quantized), and the collective payload is
+    bf16 in the compiled program."""
+    from exahype_jax.parallel.shard import make_sharded_xla_aderdg_step
+
+    solver, Q0 = _euler2d_solver(boundary)
+    mesh = make_mesh(8)
+    step_full, sharding = make_sharded_xla_aderdg_step(solver, mesh)
+    step_bf16, _ = make_sharded_xla_aderdg_step(
+        solver, mesh, wire_dtype=jnp.bfloat16
+    )
+    Qs = jax.device_put(Q0, sharding)
+    ref = np.asarray(jax.jit(step_full)(Qs, 1e-3))
+    got = np.asarray(jax.jit(step_bf16)(Qs, 1e-3))
+    diff = np.abs(got - ref)
+    assert diff.max() > 0, "bf16 wire should differ on general data"
+    assert diff.max() < 1e-2 * np.abs(ref).max()
+    hlo = jax.jit(step_bf16).lower(Qs, 1e-3).compile().as_text()
+    assert "collective-permute" in hlo and "bf16" in hlo
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_sharded_step_on_four_devices_matches_one(fused):
+    """The four-device shard_map step (the layout of a four-GPU host)
+    reproduces the same state stepped on one device, plain XLA cell stage
+    or fused kernel (interpret mode)."""
+    from exahype_jax.models.aderdg_triton import TritonADERDG
+    from exahype_jax.parallel.shard import make_sharded_xla_aderdg_step
+
+    solver, Q0 = _euler2d_solver(grid=(8, 4))
+    factory = (lambda s: TritonADERDG(s, interpret=True).cell_stage) if fused else None
+    one = TritonADERDG(solver, interpret=True).step if fused else solver.step
+    ref = np.asarray(jax.jit(one)(Q0, 1e-3))
+    mesh = make_mesh(4)
+    step, sharding = make_sharded_xla_aderdg_step(solver, mesh, cell_stage=factory)
+    out = jax.jit(step)(jax.device_put(Q0, sharding), 1e-3)
+    assert len(out.sharding.device_set) == 4
+    np.testing.assert_allclose(np.asarray(out), ref, rtol=0, atol=1e-12)
+
+
+def test_gspmd_aderdg_step_spans_four_devices():
+    """GSPMD path: ADERDGSolver.step jitted over a state placed with
+    state_sharding (grid axis 0 over four devices) stays sharded and
+    matches the single-device step."""
+    solver, Q0 = _euler2d_solver(grid=(8, 4))
+    ref = np.asarray(jax.jit(solver.step)(Q0, 1e-3))
+    mesh = make_mesh(4)
+    sharding = state_sharding(mesh, solver)
+    assert sharding.spec[solver.grid_axis(0)] is not None
+    out = jax.jit(solver.step)(jax.device_put(Q0, sharding), 1e-3)
+    assert len(out.sharding.device_set) == 4
+    np.testing.assert_allclose(np.asarray(out), ref, rtol=0, atol=1e-12)

@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-from exahype_tpu.models.elastic import elastic
-from exahype_tpu.models.point_source import PointSources, ricker
-from exahype_tpu.models.tracers import TracerAdvector
-from exahype_tpu.utils.errors import SemanticError
+from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+from exahype_jax.models.elastic import elastic
+from exahype_jax.models.point_source import PointSources, ricker
+from exahype_jax.models.tracers import TracerAdvector
+from exahype_jax.utils.errors import SemanticError
 
 from tests.test_aderdg import advection_physics
 
@@ -190,10 +190,10 @@ def test_bad_shapes_rejected():
 def test_accelerator_unwrapped_and_step_fn_hook():
     """PointSources accepts the fused accelerator; step_fn override works
     (the split form composes with ANY homogeneous step)."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
+    from exahype_jax.models.aderdg_triton import TritonADERDG
 
     solver = make_elastic_solver(order=2, cells=4)
-    accel = PallasADERDG(solver, interpret=True)
+    accel = TritonADERDG(solver, interpret=True)
     amp = np.zeros((1, 5))
     amp[0, 0] = 1.0
     ps = PointSources(accel, [[0.5, 0.5]], amp, wavelet=ricker(4.0))
@@ -208,7 +208,7 @@ def test_3d_free_surface_source_momentum_bookkeeping():
     total v_z momentum equals EXACTLY the injected ∫ψ (polynomial wavelet
     ⇒ exact quadrature) — the full ExaSeis configuration's budget closes
     to rounding."""
-    from exahype_tpu.models.elastic import elastic3d, elastic3d_free_surface
+    from exahype_jax.models.elastic import elastic3d, elastic3d_free_surface
 
     flux, eig = elastic3d()
     refl, refl_f = elastic3d_free_surface()

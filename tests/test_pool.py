@@ -13,14 +13,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models import hyperbolic
-from exahype_tpu.models.fv import build_fv_rusanov_kernel
-from exahype_tpu.parallel import GridSolver, PatchGrid
-from exahype_tpu.parallel.pool import DynamicPoolRefinement, PatchPoolRefinement
-from exahype_tpu.parallel.refine import NestedRefinement
-from exahype_tpu.utils.config import KernelConfig
-from exahype_tpu.utils.errors import SemanticError
-from exahype_tpu.utils.output import assemble_global, disassemble_global
+from exahype_jax.models import hyperbolic
+from exahype_jax.models.fv import build_fv_rusanov_kernel
+from exahype_jax.parallel import GridSolver, PatchGrid
+from exahype_jax.parallel.pool import DynamicPoolRefinement, PatchPoolRefinement
+from exahype_jax.parallel.refine import NestedRefinement
+from exahype_jax.utils.config import KernelConfig
+from exahype_jax.utils.errors import SemanticError
+from exahype_jax.utils.output import assemble_global, disassemble_global
 
 
 def make_solver(gx=4, gy=4, patch=4, velocity=(1.0, 0.0)):
@@ -55,7 +55,7 @@ def coarse_mass(solver, Q):
 def pool_region_global(pool, fine_Q, tables):
     """Assemble active pool interiors onto the fine-resolution global array
     (NaN where unrefined) — the library API under test."""
-    from exahype_tpu.utils.output import assemble_pool
+    from exahype_jax.utils.output import assemble_pool
 
     return assemble_pool(pool, fine_Q, tables)
 
@@ -345,7 +345,7 @@ def test_validation():
 def test_pool_sharded_matches_single_device():
     """The pool step is plain array ops (gathers/scatters/rolls), so GSPMD
     partitions it over a device mesh bitwise-identically."""
-    from exahype_tpu.parallel.mesh import make_mesh, state_sharding
+    from exahype_jax.parallel.mesh import make_mesh, state_sharding
 
     solver = make_solver(gx=4, gy=4)
     pool = PatchPoolRefinement(solver, capacity=4, factor=2)
@@ -371,7 +371,7 @@ def test_wall_pool_conserves_mass_and_energy():
     the mirror ghost (with the Euler reflect hook → zero wall mass/energy
     flux); interior coarse–fine faces reflux.  Mass and energy of the
     composite are conserved to rounding; momentum is not (wall pressure)."""
-    from exahype_tpu.models.aderdg import euler_reflect
+    from exahype_jax.models.aderdg import euler_reflect
 
     gx = gy = 4
     cfg = KernelConfig(
@@ -418,7 +418,7 @@ def test_mixed_box_tree_hierarchy_conserves():
     (PatchPoolRefinement via PoolInner).  Constant states are exact through
     the whole hierarchy; a Gaussian run conserves the composite mass to
     rounding (pool patches properly nested off the region boundary)."""
-    from exahype_tpu.parallel.pool import PoolInner
+    from exahype_jax.parallel.pool import PoolInner
 
     solver = make_solver(gx=4, gy=4)
     nested = NestedRefinement(solver, region_lo=(0, 0), region_hi=(3, 3), factor=2)
@@ -459,7 +459,7 @@ def test_mixed_box_tree_hierarchy_conserves():
 def test_pool_inner_rejects_boundary_patches():
     """Proper nesting is enforced: a pool patch on the box region's
     boundary ring raises instead of silently wrapping."""
-    from exahype_tpu.parallel.pool import PoolInner
+    from exahype_jax.parallel.pool import PoolInner
 
     solver = make_solver(gx=4, gy=4)
     nested = NestedRefinement(solver, region_lo=(0, 0), region_hi=(3, 3), factor=2)
@@ -470,54 +470,13 @@ def test_pool_inner_rejects_boundary_patches():
         PoolInner(pool, pool.build_tables(bad))
 
 
-def test_pallas_fine_backend_matches_jax():
-    """fine_backend='pallas': the fused VMEM kernel (AoS adapter,
-    interpret mode) drives the pool's fine patches, matching the JAX
-    lowering to 1e-13 on a scattered Euler set."""
-    from exahype_tpu.models import euler
-
-    gx = gy = 4
-    cfg = KernelConfig(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=0, n_patches=gx * gy
-    )
-    grid = PatchGrid(config=cfg, grid_shape=(gx, gy))
-    kb = build_fv_rusanov_kernel(
-        dim=2, patch_size=4, halo_size=1, n_real=5, n_aux=0, n_patches=gx * gy
-    )
-    solver = GridSolver(grid, kb, dx=1.0 / 16, kernel_dt="lambda")
-    mask = np.zeros((4, 4), bool)
-    mask[1, 1] = mask[2, 3] = True
-
-    rng = np.random.default_rng(9)
-    Q0 = rng.uniform(0.1, 1.0, size=grid.state_shape)
-    Q0[..., 0] += 1.0
-    Q0[..., 3] += 5.0
-    Q0 = jnp.asarray(Q0)
-
-    outs = []
-    for backend, kw in (("jax", None), ("pallas", {"interpret": True, "tile_patches": 2})):
-        pool = PatchPoolRefinement(
-            solver, capacity=2, factor=2,
-            fine_backend=backend, fine_backend_kwargs=kw,
-        )
-        tables = pool.build_tables(mask)
-        fs = pool.init_pool(Q0, tables)
-        outs.append(pool.step(Q0, fs, tables, 1e-3))
-    np.testing.assert_allclose(
-        np.asarray(outs[1][0]), np.asarray(outs[0][0]), rtol=0, atol=1e-13
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs[1][1]), np.asarray(outs[0][1]), rtol=0, atol=1e-13
-    )
-
-
 def test_pool_fine_state_sharded_matches_single_device():
     """VERDICT r2 item 2: the POOL itself shards — the fine slot axis is
     partitioned over the mesh (each device steps only its own slots), not
     None-replicated — and the coupled step still matches single-device."""
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel.mesh import make_mesh, state_sharding
+    from exahype_jax.parallel.mesh import make_mesh, state_sharding
 
     solver = make_solver(gx=8, gy=8)
     pool = PatchPoolRefinement(solver, capacity=4, factor=2)
@@ -570,8 +529,8 @@ def test_pool_fine_state_sharded_matches_single_device():
 
 
 def test_pool_sharding_requires_divisibility():
-    from exahype_tpu.parallel.mesh import make_mesh
-    from exahype_tpu.utils.errors import SemanticError
+    from exahype_jax.parallel.mesh import make_mesh
+    from exahype_jax.utils.errors import SemanticError
 
     solver = make_solver(gx=4, gy=4)
     pool = PatchPoolRefinement(solver, capacity=3, factor=2)  # 12 slots
@@ -583,7 +542,7 @@ def test_halo_fill_composed_map_matches_sequential():
     """The composed-index-map halo fill is BITWISE identical to the
     sequential axis-by-axis fill (periodic and reflective, corners and
     wall mirrors included)."""
-    from exahype_tpu.models.aderdg import euler_reflect
+    from exahype_jax.models.aderdg import euler_reflect
 
     for boundary in ("periodic", "reflective"):
         gx = gy = 4

@@ -9,12 +9,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from exahype_tpu.models import hyperbolic
-from exahype_tpu.models.fv import build_fv_rusanov_kernel
-from exahype_tpu.parallel import GridSolver, PatchGrid
-from exahype_tpu.parallel.refine import NestedRefinement
-from exahype_tpu.utils.config import KernelConfig
-from exahype_tpu.utils.output import assemble_global
+from exahype_jax.models import hyperbolic
+from exahype_jax.models.fv import build_fv_rusanov_kernel
+from exahype_jax.parallel import GridSolver, PatchGrid
+from exahype_jax.parallel.refine import NestedRefinement
+from exahype_jax.utils.config import KernelConfig
+from exahype_jax.utils.output import assemble_global
 
 
 def make_advection_setup(gx=4, gy=4, patch=4, factor=3, velocity=(1.0, 0.0)):
@@ -56,7 +56,7 @@ def test_prolongation_picks_containing_coarse_cell():
     glob = np.broadcast_to(
         np.arange(n_cells, dtype=float)[:, None, None], (n_cells, n_cells, 1)
     )
-    from exahype_tpu.utils.output import disassemble_global
+    from exahype_jax.utils.output import disassemble_global
 
     coarse_Q = disassemble_global(
         solver.grid, jnp.zeros(solver.grid.state_shape), jnp.asarray(glob)
@@ -78,7 +78,7 @@ def gaussian_coarse_state(solver, t=0.0, velocity=(1.0, 0.0), width=0.08):
     X, Y = np.meshgrid(x, x, indexing="ij")
     cx, cy = 0.5 + velocity[0] * t, 0.5 + velocity[1] * t
     u = np.exp(-(((X - cx) ** 2 + (Y - cy) ** 2) / width**2))
-    from exahype_tpu.utils.output import disassemble_global
+    from exahype_jax.utils.output import disassemble_global
 
     return disassemble_global(
         solver.grid, jnp.zeros(solver.grid.state_shape), jnp.asarray(u[..., None])
@@ -97,7 +97,7 @@ def region_error(nested, solver, result_global, exact_global):
 
 def gaussian_fine_state(nested, t=0.0, velocity=(1.0, 0.0), width=0.08):
     """Exact initial data sampled at fine resolution inside the region."""
-    from exahype_tpu.utils.output import disassemble_global
+    from exahype_jax.utils.output import disassemble_global
 
     cfg = nested.coarse.grid.config
     P, r = cfg.patch_size, nested.factor
@@ -188,14 +188,14 @@ def test_region_validation():
     solver, _ = make_advection_setup()
     import pytest
 
-    from exahype_tpu.utils.errors import SemanticError
+    from exahype_jax.utils.errors import SemanticError
 
     with pytest.raises(SemanticError):
         NestedRefinement(solver, region_lo=(0, 0), region_hi=(9, 2), factor=3)
 
 
 def test_refinement_criteria():
-    from exahype_tpu.parallel.criteria import (
+    from exahype_jax.parallel.criteria import (
         gradient_indicator,
         jump_indicator,
         region_around_max,
@@ -316,7 +316,7 @@ def test_three_level_refluxing_conserves():
 def test_nested_refinement_sharded_matches_single_device():
     """The whole coupled hierarchy step runs under GSPMD with the coarse
     state sharded over a device mesh, bitwise-equal to single-device."""
-    from exahype_tpu.parallel.mesh import make_mesh, state_sharding
+    from exahype_jax.parallel.mesh import make_mesh, state_sharding
 
     solver, nested = make_advection_setup(gx=4, gy=4)
     coarse_Q = gaussian_coarse_state(solver)
@@ -337,7 +337,7 @@ def test_dynamic_refinement_tracks_and_conserves():
     the composite solution conserves mass to rounding ACROSS re-grid events
     (restrict before / piecewise-constant prolong after preserve means;
     refluxing conserves within chunks)."""
-    from exahype_tpu.parallel.refine import DynamicRefinement
+    from exahype_jax.parallel.refine import DynamicRefinement
 
     solver, _ = make_advection_setup(gx=6, gy=6)
     grid = solver.grid
@@ -345,7 +345,7 @@ def test_dynamic_refinement_tracks_and_conserves():
     x = (np.arange(n) + 0.5) / n
     X, Y = np.meshgrid(x, x, indexing="ij")
     u0 = np.exp(-(((X - 0.2) ** 2 + (Y - 0.5) ** 2) / 0.08**2))
-    from exahype_tpu.utils.output import disassemble_global
+    from exahype_jax.utils.output import disassemble_global
 
     coarse_Q = disassemble_global(
         grid, jnp.zeros(grid.state_shape), jnp.asarray(u0[..., None])

@@ -10,8 +10,8 @@ weak waves must reduce to linear acoustics.
 import numpy as np
 import pytest
 
-from exahype_tpu.models import riemann_sr as ex
-from exahype_tpu.models.riemann_sr import MM_LEFT, MM_RIGHT, PrimState
+from exahype_jax.models import riemann_sr as ex
+from exahype_jax.models.riemann_sr import MM_LEFT, MM_RIGHT, PrimState
 
 GAMMA = 5.0 / 3.0
 
@@ -116,9 +116,9 @@ def test_srhd_solver_converges_to_exact():
     import jax
     import jax.numpy as jnp
 
-    from exahype_tpu.models import srhd
-    from exahype_tpu.models.aderdg import ADERDGSolver, wrap_var_last
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models import srhd
+    from exahype_jax.models.aderdg import ADERDGSolver, wrap_var_last
+    from exahype_jax.models.limiter import LimitedADERDG
 
     t_end = 0.15
     sod_l = PrimState(1.0, 0.0, 1.0)

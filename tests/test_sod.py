@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models import euler
-from exahype_tpu.models.fv import build_fv_rusanov_kernel
-from exahype_tpu.models.riemann import SOD_LEFT, SOD_RIGHT, sample, star_state
-from exahype_tpu.parallel import GridSolver, PatchGrid
-from exahype_tpu.utils.config import KernelConfig
-from exahype_tpu.utils.output import assemble_global, disassemble_global
+from exahype_jax.models import euler
+from exahype_jax.models.fv import build_fv_rusanov_kernel
+from exahype_jax.models.riemann import SOD_LEFT, SOD_RIGHT, sample, star_state
+from exahype_jax.parallel import GridSolver, PatchGrid
+from exahype_jax.utils.config import KernelConfig
+from exahype_jax.utils.output import assemble_global, disassemble_global
 
 
 def test_star_state_matches_toro_reference():
@@ -97,8 +97,8 @@ def test_sod_converges_first_order():
 def test_sod_limited_aderdg_beats_fv():
     """Limited order-3 ADER-DG at 16 cells resolves Sod better than
     first-order FV at 64 cells (measured: 0.035 vs 0.050 L1)."""
-    from exahype_tpu.models.aderdg import ADERDGSolver, _project, euler_physics
-    from exahype_tpu.models.limiter import LimitedADERDG, euler_admissible
+    from exahype_jax.models.aderdg import ADERDGSolver, _project, euler_physics
+    from exahype_jax.models.limiter import LimitedADERDG, euler_admissible
 
     gamma = 1.4
     t_end = 0.15

@@ -23,7 +23,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from exahype_tpu.models import grhd_cfc, tov
+from exahype_jax.models import grhd_cfc, tov
 
 GAMMA = 5.0 / 3.0
 
@@ -163,7 +163,7 @@ def test_tov_window_stationary_cowling():
     evolution: the residual after fixed steps decays above the scheme
     order — the Michel-window pattern (test_models.py) on a
     self-gravitating interior."""
-    from exahype_tpu.models.aderdg import (
+    from exahype_jax.models.aderdg import (
         ADERDGSolver,
         make_dirichlet_fn,
         wrap_var_last,
@@ -223,8 +223,8 @@ def test_tov_window_stationary_coupled():
     scheme order.  Every sector participates: a wrong Ricci term, matter
     source, coupling sign, or first-order-variable definition breaks the
     balance and the residual plateaus."""
-    from exahype_tpu.models.aderdg import make_dirichlet_fn
-    from exahype_tpu.models.z4_matter import (
+    from exahype_jax.models.aderdg import make_dirichlet_fn
+    from exahype_jax.models.z4_matter import (
         N_VARS,
         make_z4_matter_solver,
     )

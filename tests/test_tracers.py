@@ -15,13 +15,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
-from exahype_tpu.models.tracers import (
+from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
+from exahype_jax.models.tracers import (
     TracerAdvector,
     euler_velocity,
     uniform_tracers,
 )
-from exahype_tpu.utils.errors import SemanticError
+from exahype_jax.utils.errors import SemanticError
 
 from tests.test_aderdg import advection_physics
 
@@ -246,7 +246,7 @@ def test_sample_under_grid_sharding_matches():
     axis) matches the single-device result."""
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
 
     solver = make_solver(dim=2, order=2, cells=8)
     u = nodal_field(solver, lambda x, y: jnp.sin(x) + y**2)
@@ -268,14 +268,14 @@ def test_sample_under_grid_sharding_matches():
 def test_pallas_accelerator_unwrapped():
     """TracerAdvector accepts the fused accelerator and uses its base
     solver's layout."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
+    from exahype_jax.models.aderdg_triton import TritonADERDG
 
     flux, eig = euler_physics(dim=2, n_real=4)
     solver = ADERDGSolver(
         dim=2, order=2, n_vars=4, grid_shape=(8, 8),
         flux_fn=flux, max_eigenvalue_fn=eig, dx=0.125,
     )
-    accel = PallasADERDG(solver, interpret=True)
+    accel = TritonADERDG(solver, interpret=True)
     adv = TracerAdvector(accel, euler_velocity(2))
     assert adv.solver is solver
 
@@ -284,7 +284,7 @@ def test_pallas_accelerator_unwrapped():
 
 
 def make_amr(order=3, cells=6, factor=3):
-    from exahype_tpu.models.aderdg_amr import ADERDGNestedRefinement
+    from exahype_jax.models.aderdg_amr import ADERDGNestedRefinement
 
     solver = make_solver(dim=2, order=order, cells=cells)
     return ADERDGNestedRefinement(
@@ -296,7 +296,7 @@ def test_nested_sampler_consistent_on_polynomials():
     """A degree<=order field is represented exactly on BOTH levels, so the
     composite sampler must agree with the coarse one everywhere — a strong
     check of the fine grid's ghost-extended origin offset."""
-    from exahype_tpu.models.tracers import NestedTracerAdvector
+    from exahype_jax.models.tracers import NestedTracerAdvector
 
     amr = make_amr()
     uc = nodal_field(amr.coarse, lambda x, y: 0.4 + x * y - 1.3 * x**2 * y)
@@ -312,7 +312,7 @@ def test_nested_sampler_consistent_on_polynomials():
 def test_nested_sampler_selects_fine_inside_region():
     """For a rough field the two levels disagree; the composite must return
     the FINE values strictly inside the refined box and coarse outside."""
-    from exahype_tpu.models.tracers import NestedTracerAdvector
+    from exahype_jax.models.tracers import NestedTracerAdvector
 
     amr = make_amr(order=2)
     uc = nodal_field(amr.coarse, lambda x, y: np.sin(9 * x) * np.cos(7 * y))
@@ -337,10 +337,10 @@ def test_nested_sampler_selects_fine_inside_region():
 
 def test_nested_trajectories_with_amr_step():
     """Tracers + the coupled AMR step advance together in one jitted scan."""
-    from exahype_tpu.models.aderdg_amr import ADERDGNestedRefinement
-    from exahype_tpu.models.tracers import NestedTracerAdvector
+    from exahype_jax.models.aderdg_amr import ADERDGNestedRefinement
+    from exahype_jax.models.tracers import NestedTracerAdvector
 
-    from exahype_tpu.models.aderdg import ADERDGSolver, euler_physics
+    from exahype_jax.models.aderdg import ADERDGSolver, euler_physics
 
     flux, eig = euler_physics(dim=2, n_real=4)
     coarse = ADERDGSolver(
@@ -381,7 +381,7 @@ def test_sample_under_particle_sharding_matches():
     sampling and advection exactly."""
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
 
     solver = make_solver(dim=2, order=2, cells=8)
     u = nodal_field(solver, lambda x, y: jnp.cos(3 * x) * (1.0 + y))
@@ -406,8 +406,8 @@ def test_sample_under_particle_sharding_matches():
 
 
 def make_fv_grid(gx=3, gy=2, patch=4, halo=1, n_vars=3):
-    from exahype_tpu.parallel import PatchGrid
-    from exahype_tpu.utils.config import KernelConfig
+    from exahype_jax.parallel import PatchGrid
+    from exahype_jax.utils.config import KernelConfig
 
     cfg = KernelConfig(
         dim=2, patch_size=patch, halo_size=halo, n_real=n_vars, n_aux=0,
@@ -437,7 +437,7 @@ def test_fv_sample_exact_on_linear_fields():
     fields exactly — including across patch boundaries and the periodic
     wrap corner (corners gather from their own patches, so halos are
     never read: they are zeroed here)."""
-    from exahype_tpu.models.tracers import FVTracerAdvector
+    from exahype_jax.models.tracers import FVTracerAdvector
 
     grid = make_fv_grid()
     NX, NY = 12, 8
@@ -460,7 +460,7 @@ def test_fv_sample_exact_on_linear_fields():
 def test_fv_constant_advection_trajectory():
     """Uniform velocity field stored in the state: trajectories are exact,
     including the periodic wrap."""
-    from exahype_tpu.models.tracers import FVTracerAdvector
+    from exahype_jax.models.tracers import FVTracerAdvector
 
     grid = make_fv_grid(n_vars=2)
     dx = 1.0 / 12
@@ -482,9 +482,9 @@ def test_fv_trajectories_with_grid_solver():
     """FV tracers + the spec-DSL GridSolver advance together in one scan."""
     import jax
 
-    from exahype_tpu.models.fv import build_fv_rusanov_kernel
-    from exahype_tpu.models.tracers import FVTracerAdvector, euler_velocity
-    from exahype_tpu.parallel import GridSolver
+    from exahype_jax.models.fv import build_fv_rusanov_kernel
+    from exahype_jax.models.tracers import FVTracerAdvector, euler_velocity
+    from exahype_jax.parallel import GridSolver
 
     grid = make_fv_grid(gx=2, gy=2, patch=4, n_vars=4)
     dx = 1.0 / 8

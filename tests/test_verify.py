@@ -5,8 +5,8 @@ policy's flux-halo reads — and report the canonical kernel clean under the
 sound policy.
 """
 
-from exahype_tpu.frontend.verify import check_initialized_reads
-from exahype_tpu.models.rusanov import build_rusanov_kernel
+from exahype_jax.frontend.verify import check_initialized_reads
+from exahype_jax.models.rusanov import build_rusanov_kernel
 
 
 def test_sound_policy_is_clean():

@@ -61,12 +61,12 @@ def _parse(ctx, text):
 
 
 def _demo_kernel():
-    from exahype_tpu.ir.builder import (
+    from exahype_jax.ir.builder import (
         FluxBuilder,
         PatchBuilder,
         StencilBuilder,
     )
-    from exahype_tpu.ir.kernel_ir import Kernel
+    from exahype_jax.ir.kernel_ir import Kernel
 
     patch = PatchBuilder.build("Qcopy", [4, 4], "f64")
     fx = FluxBuilder.build("flux_x", "Flux_x", [4, 4], halo=[1, 0, 0])
@@ -86,7 +86,7 @@ def test_generic_form_parses_in_real_xdsl():
     """print_mlir_generic claims 'any MLIR parser accepts it under
     --allow-unregistered-dialect' (ir/kernel_ir.py:219) — execute that
     claim against xdsl's parser instead of asserting it."""
-    from exahype_tpu.ir.kernel_ir import print_mlir_generic
+    from exahype_jax.ir.kernel_ir import print_mlir_generic
 
     text = print_mlir_generic(_demo_kernel())
     ctx = _xdsl_context(allow_unregistered=True)
@@ -102,8 +102,8 @@ def test_generic_form_parses_in_real_xdsl():
 def test_mlir_backend_module_parses_in_real_xdsl():
     """The standard-dialect module from MLIRPrinter must be valid MLIR by a
     third-party implementation, not only by our own verifier."""
-    from exahype_tpu.backends.mlir_backend import MLIRPrinter
-    from exahype_tpu.models.rusanov import build_rusanov_kernel
+    from exahype_jax.backends.mlir_backend import MLIRPrinter
+    from exahype_jax.models.rusanov import build_rusanov_kernel
 
     kb = build_rusanov_kernel(
         dim=2, patch_size=4, halo_size=1, n_real=4, n_aux=0, n_patches=2

@@ -20,8 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models import z4
-from exahype_tpu.models.z4 import (
+from exahype_jax.models import z4
+from exahype_jax.models.z4 import (
     N_VARS,
     adm_constraints,
     flat_state_values,
@@ -494,48 +494,13 @@ def _noisy_gauge_wave(solver, seed=3, eps=1e-4):
     return Q0 + eps * jnp.asarray(rng.standard_normal(solver.state_shape))
 
 
-def test_z4_fused_pallas_parity():
-    """Dynamic GR runs on the flagship fused predictor (interpret mode;
-    the kernel is physics-generic): a pure-NCP 38-variable system with an
-    algebraic source at 1e-12 parity with the base solver."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = make_z4_solver(dim=2, order=2, grid_shape=(4, 2), dx=0.25,
-                            kappa1=0.5, kappa2=0.1)
-    fused = PallasADERDG(solver, interpret=True)
-    Q0 = _noisy_gauge_wave(solver)
-    dt = 1e-3
-    ref = np.asarray(solver.step(Q0, dt))
-    got = np.asarray(fused.step(Q0, dt))
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-14)
-
-
-def test_z4_soa_fused_pallas_parity():
-    """The component-unrolled (SoA) callbacks run through the fused
-    predictor: ``impl='soa'`` routes ncp/source inside the kernel through
-    pure elementwise arithmetic (no einsum relayouts) and still matches
-    the einsum base solver to rounding."""
-    from exahype_tpu.models.aderdg_pallas import PallasADERDG
-
-    solver = make_z4_solver(dim=2, order=2, grid_shape=(4, 2), dx=0.25,
-                            kappa1=0.5, kappa2=0.1)
-    soa = make_z4_solver(dim=2, order=2, grid_shape=(4, 2), dx=0.25,
-                         kappa1=0.5, kappa2=0.1, impl="soa")
-    fused = PallasADERDG(soa, interpret=True)
-    Q0 = _noisy_gauge_wave(solver)
-    dt = 1e-3
-    ref = np.asarray(solver.step(Q0, dt))
-    got = np.asarray(fused.step(Q0, dt))
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-14)
-
-
 def test_z4_sharded_matches_single_device():
     """GSPMD-sharded Z4 step (grid axis 0 over the 8-device mesh) matches
     the single-device step to 1e-12 — the Einstein equations partition
     through the same collective machinery as every matter model."""
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
 
     solver = make_z4_solver(dim=2, order=2, grid_shape=(8, 2), dx=0.125)
     Q0 = _noisy_gauge_wave(solver, seed=5)
@@ -556,7 +521,7 @@ def test_z4_sharded_matches_single_device():
 
 # ------------------------------------------------------------ shift sector
 
-from exahype_tpu.models.z4 import (  # noqa: E402
+from exahype_jax.models.z4 import (  # noqa: E402
     _AL,
     _BB,
     _BETA,
@@ -897,9 +862,9 @@ def test_fused_rhs_hook_matches_per_axis_path():
 
 
 def test_soa_rhs_matches_einsum_rhs():
-    """The component-unrolled (SoA, TPU-layout) twin reproduces the
+    """The component-unrolled (SoA) twin reproduces the
     validated einsum RHS to rounding for every parameter family."""
-    from exahype_tpu.models.z4 import z4_rhs_soa
+    from exahype_jax.models.z4 import z4_rhs_soa
 
     rng = np.random.default_rng(12)
     q = rng.standard_normal((4, 5, N_VARS)) * 0.1
@@ -921,7 +886,7 @@ def test_shift_soa_rhs_matches_einsum_rhs():
     rounding — frozen and Gamma-driver modes (the driver's ∂_t Γ is an
     explicit chain rule vs the einsum path's jvp: same linear map, so
     agreement is rounding-level, not bitwise)."""
-    from exahype_tpu.models.z4 import z4_shift_rhs_soa
+    from exahype_jax.models.z4 import z4_shift_rhs_soa
 
     rng = np.random.default_rng(21)
     q = rng.standard_normal((3, 4, N_VARS_SHIFT)) * 0.1

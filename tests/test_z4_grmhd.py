@@ -24,9 +24,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from exahype_tpu.models import rmhd
-from exahype_tpu.models.z4 import N_VARS as N_Z4
-from exahype_tpu.models.z4_grmhd import (
+from exahype_jax.models import rmhd
+from exahype_jax.models.z4 import N_VARS as N_Z4
+from exahype_jax.models.z4_grmhd import (
     N_VARS,
     make_z4_grmhd_solver,
     pack_matter_mhd,
@@ -118,7 +118,7 @@ def _make_mhd_fields(seed=3, B_scale=0.05):
 def _mhd_state(alpha, gam, K, theta, Z, rho, p, v_low, B_up, psi):
     """x → the 47-component coupled state (D/A from autodiff, hydro and
     magnetic sectors densitized on the local metric)."""
-    from exahype_tpu.models.z4 import pack
+    from exahype_jax.models.z4 import pack
 
     def state(x):
         al = alpha(x)
@@ -375,7 +375,7 @@ def test_stress_energy_matches_4tensor_construction():
 def test_zero_field_reduces_to_coupled_hydro():
     """B = 0, φ̃ = 0: RHS and flux rows equal `z4_matter` (which is
     autodiff-oracle validated) to recovery-convergence level."""
-    from exahype_tpu.models import z4_matter
+    from exahype_jax.models import z4_matter
 
     z4, rho, v_low, p, _ = _rng_fields()
     B0 = np.zeros((len(rho), 3))
@@ -552,7 +552,7 @@ def test_glm_keeps_divergence_bounded():
         q = jnp.moveaxis(u, solver.var_axis, -1)
         Bx = q[..., 43]
         By = q[..., 44]
-        from exahype_tpu.models.aderdg import _apply
+        from exahype_jax.models.aderdg import _apply
 
         dBx = _apply(np.asarray(solver.ops.D), Bx,
                      axis=solver.node_axis(0)) / solver._dxs[0]
@@ -571,7 +571,7 @@ def test_glm_keeps_divergence_bounded():
 
 @pytest.mark.slow
 def test_limiter_composes_with_coupled_mhd():
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models.limiter import LimitedADERDG
 
     solver = make_z4_grmhd_solver(
         dim=2, order=2, grid_shape=(6, 6), dx=1.0 / 6, gamma=GAMMA,
@@ -604,7 +604,7 @@ def test_limiter_composes_with_coupled_mhd():
 def test_sharded_coupled_mhd_matches_single_device():
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
 
     solver = make_z4_grmhd_solver(
         dim=2, order=2, grid_shape=(8, 4), dx=0.25, gamma=GAMMA,
@@ -626,10 +626,10 @@ def test_sharded_coupled_mhd_matches_single_device():
 
 @pytest.mark.slow
 def test_fused_rhs_hook_matches_plain_step():
-    """``fused_rhs='soa'`` (the fused-Pallas on-chip configuration) is a
+    """``fused_rhs='soa'`` (the one-evaluation SoA hook) is a
     pure refactor of the Picard RHS: one coupled step matches the plain
     per-axis solver to rounding — for BOTH coupled systems."""
-    from exahype_tpu.models.z4_matter import make_z4_matter_solver
+    from exahype_jax.models.z4_matter import make_z4_matter_solver
 
     solver = make_z4_grmhd_solver(
         dim=2, order=2, grid_shape=(4, 4), dx=0.25, gamma=GAMMA,
@@ -643,7 +643,7 @@ def test_fused_rhs_hook_matches_plain_step():
     b = np.asarray(fused.step(Q, 5e-4))
     np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
 
-    from exahype_tpu.models.z4_matter import flrw_state
+    from exahype_jax.models.z4_matter import flrw_state
 
     hs = make_z4_matter_solver(dim=2, order=2, grid_shape=(4, 4), dx=0.25,
                                gamma=GAMMA, slicing="harmonic", f=0.0)

@@ -23,10 +23,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from exahype_tpu.models import srhd
-from exahype_tpu.models.z4 import N_VARS as N_Z4
-from exahype_tpu.models.z4 import z4_rhs
-from exahype_tpu.models.z4_matter import (
+from exahype_jax.models import srhd
+from exahype_jax.models.z4 import N_VARS as N_Z4
+from exahype_jax.models.z4 import z4_rhs
+from exahype_jax.models.z4_matter import (
     EIGHT_PI,
     N_VARS,
     flrw_reference,
@@ -113,7 +113,7 @@ def _make_fields(seed=3, hydro_scale=0.02):
 def _first_order_state(alpha, gam, K, theta, Z, rho, p, v_low):
     """x → the 43-component coupled state (D/A from autodiff, hydro
     densitized on the local metric)."""
-    from exahype_tpu.models.z4 import pack
+    from exahype_jax.models.z4 import pack
 
     def state(x):
         al = alpha(x)
@@ -141,7 +141,7 @@ def _oracle_rhs(alpha, gam, K, theta, Z, rho_f, p_f, v_f, *,
     drive the SAME independent geometry with the TOTAL (fluid + EM)
     projections from a covariant 4-tensor construction.  The Valencia
     sources (rows 39-42) then also carry the supplied total S^{ik}."""
-    from exahype_tpu.models.z4 import _slicing, pack
+    from exahype_jax.models.z4 import _slicing, pack
 
     g_of, _ = _slicing(slicing, f)
 
@@ -365,7 +365,7 @@ def test_zero_matter_reduces_to_vacuum():
 def test_flat_frozen_metric_reduces_to_srhd():
     """On Minkowski the hydro flux rows equal the flat SRHD fluxes and the
     geometric sources vanish."""
-    from exahype_tpu.models.z4 import flat_state_values
+    from exahype_jax.models.z4 import flat_state_values
 
     rng = np.random.default_rng(0)
     n = 7
@@ -434,7 +434,7 @@ def test_flrw_initial_data_satisfies_constraints():
     vals = flrw_values(1.0, np.sqrt(8 * np.pi * rho0 * (1 + eps0) / 3),
                        rho0=rho0, eps0=eps0, gamma=GAMMA)
     q = jnp.asarray(vals)[None]
-    from exahype_tpu.models.z4 import adm_constraints
+    from exahype_jax.models.z4 import adm_constraints
 
     H, M = adm_constraints(q[..., :N_Z4], jnp.zeros((1, 3, N_Z4)))
     E = rho0 * (1.0 + eps0)
@@ -506,7 +506,7 @@ def test_limiter_composes_with_coupled_system():
     """LimitedADERDG over the coupled system: an FLRW state with a strong
     localized density bump stays finite and admissible through limited
     steps (DMP detection + subcell fallback on the 43-var system)."""
-    from exahype_tpu.models.limiter import LimitedADERDG
+    from exahype_jax.models.limiter import LimitedADERDG
 
     rho0, eps0 = 0.02, 0.3
     solver = make_z4_matter_solver(
@@ -550,7 +550,7 @@ def test_sharded_coupled_step_matches_single_device():
     to rounding (the vacuum-Z4 sharding path extends to 43 vars)."""
     from jax.sharding import NamedSharding, PartitionSpec
 
-    from exahype_tpu.parallel import make_mesh
+    from exahype_jax.parallel import make_mesh
 
     rho0 = 0.02
     solver = make_z4_matter_solver(
